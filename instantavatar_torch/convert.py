@@ -1,0 +1,91 @@
+"""State carried between the JAX package and the port through numpy.
+
+Works on numpy arrays only (never imports jax): tests pass
+``jax.tree.map(np.asarray, params)`` in, so both packages compute from the
+same weights. ``seeded_field_params`` makes such weights from a numpy seed,
+for runs where JAX is not installed (the smoke run on the GPU).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .deformers.fast_snarf import SnarfCanonical
+from .render.density_grid import DensityGridState
+
+__all__ = ["field_params_from_numpy", "seeded_field_params",
+           "snarf_canonical_from_numpy", "grid_state_from_numpy"]
+
+_FEATURES = ("voxel", "plane_xy", "plane_xz", "plane_yz")
+_MLPS = ("sigma_w", "sigma_b", "color_w", "color_b")
+
+
+def _get(obj, name):
+    return obj[name] if isinstance(obj, dict) else getattr(obj, name)
+
+
+def field_params_from_numpy(params) -> dict[str, torch.Tensor]:
+    """``VoxelTriplaneParams`` fields (numpy; NamedTuple or dict) -> a
+    ``VoxelTriplaneField`` state dict of CPU float32 tensors (load it with
+    ``field.load_state_dict``, which copies onto the field's device)."""
+    sd = {k: torch.as_tensor(np.asarray(_get(params, k), np.float32))
+          for k in _FEATURES}
+    for k in _MLPS:
+        for i, a in enumerate(_get(params, k)):
+            sd[f"{k}.{i}"] = torch.as_tensor(np.asarray(a, np.float32))
+    return sd
+
+
+def seeded_field_params(voxel_res: int, plane_res: int, seed: int, *,
+                        voxel_feats: int = 8, plane_feats: int = 16,
+                        feat_std: float = 0.5,
+                        sigma_bias: float | None = None
+                        ) -> dict[str, object]:
+    """Field params from a numpy seed, as a dict with the
+    ``VoxelTriplaneParams`` field names (MLP entries are lists): features
+    N(0, feat_std^2), He-init head weights, zero biases, and
+    ``sigma_bias`` written into the raw-sigma output bias (an opaque field,
+    like a trained avatar)."""
+    rng = np.random.default_rng(seed)
+    enc_dim = voxel_feats + 3 * plane_feats
+
+    def feat(*shape):
+        return (feat_std * rng.standard_normal(shape)).astype(np.float32)
+
+    def mlp(dims):
+        ws = [(rng.standard_normal((a, b)) * np.sqrt(2.0 / a))
+              .astype(np.float32) for a, b in zip(dims[:-1], dims[1:])]
+        return ws, [np.zeros((b,), np.float32) for b in dims[1:]]
+
+    Gv, Gp = voxel_res + 1, plane_res + 1
+    out = {"voxel": feat(Gv, Gv, Gv, voxel_feats),
+           "plane_xy": feat(Gp, Gp, plane_feats),
+           "plane_xz": feat(Gp, Gp, plane_feats),
+           "plane_yz": feat(Gp, Gp, plane_feats)}
+    out["sigma_w"], out["sigma_b"] = mlp((enc_dim, 64, 16))
+    out["color_w"], out["color_b"] = mlp((15, 64, 64, 3))
+    if sigma_bias is not None:
+        out["sigma_b"][-1][0] = sigma_bias
+    return out
+
+
+def snarf_canonical_from_numpy(cano, *, device: torch.device | str
+                               ) -> SnarfCanonical:
+    """JAX ``SnarfCanonical`` fields (numpy) -> the port's canonical state
+    on ``device`` (the JAX bf16 ``lbs_packed`` copy is not carried)."""
+    return SnarfCanonical(**{
+        k: torch.as_tensor(np.array(_get(cano, k)), device=device)
+        for k in SnarfCanonical._fields})
+
+
+def grid_state_from_numpy(grid, *, device: torch.device | str
+                          ) -> DensityGridState:
+    """JAX ``DensityGridState`` fields (numpy) -> the port's grid state."""
+    return DensityGridState(
+        density_cached=torch.as_tensor(
+            np.array(_get(grid, "density_cached"), np.float32),
+            device=device),
+        occupancy=torch.as_tensor(np.array(_get(grid, "occupancy"), bool),
+                                  device=device),
+        aabb=torch.as_tensor(np.array(_get(grid, "aabb"), np.float32),
+                             device=device))
