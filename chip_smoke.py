@@ -3,7 +3,9 @@
 Drives ``instantavatar_torch``'s flagship novel-view render (toy body,
 Fast-SNARF res 128, voxel+triplane field at full width, flat-stream
 render at 540x540, the bench.py configuration with random numpy-seeded
-weights) through the entry points a user calls, and checks it in phases:
+weights) and its training (the same configuration as
+``tools/quality_bench.py:make_flagship(reduced=True)``) through the entry
+points a user calls, and checks it in phases:
 
   1. device: a CUDA card is required (no CPU run); TF32 is switched off;
   2. build: the fused field-head kernel is compiled from csrc/ with nvcc;
@@ -12,12 +14,25 @@ weights) through the entry points a user calls, and checks it in phases:
   4. the 540 px slice: 2 warm frames, then an 8-frame turntable through
      ``render_frames``; the kernel's launch counter must rise;
   5. head swap: one frame again with the plain head, PSNR-bounded;
-  6. golden: the committed JAX golden frame (96 px), PSNR-bounded.
+  6. golden: the committed JAX golden frame (96 px), PSNR-bounded;
+  7. training: a 264 px capsule scene (30 train + 2 val frames, made on
+     the card), 150 ``AvatarModel.step`` calls (5 epochs; grid update and
+     occupancy regularizer every 20 steps, cached-search steps between,
+     Adam with the 20-epoch decay); step times, peak memory, occupied
+     cells, the loss fall (bounded);
+  8. validation: the 2 val frames rendered with ``eval_grid="density"``
+     (``build_test_grid``, then the flat render through the kernel),
+     PSNR-bounded against the GT;
+  9. training golden: one JAX update step and one plain step
+     (``tests/data/torch_train_golden.npz``) replayed on the card: losses,
+     gradients and the updated grid within the CPU tests' tolerances.
 
 Any failed check exits non-zero. The last stdout line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``
-and the line before it lists the kernels. ``--profile DIR`` also writes
-a torch.profiler summary and trace of two steady-state frames to DIR.
+and the line before it lists the kernels, with the kernel's launches in
+each path (turntable, training, val render). ``--profile DIR`` also
+writes torch.profiler summaries and traces of two steady-state frames and
+of one grid-update step plus three plain training steps to DIR.
 
 Run from the repository root:  python3 chip_smoke.py [--profile DIR]
 """
@@ -39,6 +54,11 @@ H = W = 540
 HEAD_TOL = 2e-3          # kernel vs plain: one bf16 ulp flip, see tests
 HEAD_SWAP_MIN_DB = 40.0
 GOLDEN_MIN_DB = 35.0
+TRAIN_SIZE, TRAIN_FRAMES, VAL_FRAMES, TRAIN_STEPS = 264, 30, 2, 150
+# bounds set from the first card run (loss ratio 0.060, val 35.89 dB)
+TRAIN_LOSS_FALL_MAX = 0.15   # mean mse_loss, last 10 steps / first 10
+VAL_MIN_DB = 32.0
+JAX_CACHED_EPOCH5_DB = 33.72   # artifacts/r5_warp_gate.jsonl (TPU history)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -98,6 +118,194 @@ def make_avatar(device, *, deformer_res, grid_size, voxel_res, plane_res,
                        grid_size=grid_size, eval_n_steps=48,
                        cache_n_cand=1, samples_per_ray=5.0,
                        eval_grid="smpl_shell", shell_margin=shell_margin)
+
+
+def profile(fn, profile_dir: Path, name: str, what: str) -> None:
+    """Run ``fn`` under torch.profiler; write the kernel table and trace
+    to ``profile_dir`` and print the device busy share."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+    profile_dir.mkdir(parents=True, exist_ok=True)
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    avg = prof.key_averages()
+    dkey = ("device_time_total" if hasattr(avg[0], "device_time_total")
+            else "cuda_time_total")
+    # device kernels only (operator rows repeat their kernels' time)
+    busy_us = sum(getattr(e, "self_" + dkey) for e in avg
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    table = avg.table(sort_by="self_" + dkey, row_limit=40)
+    (profile_dir / f"{name}.txt").write_text(table)
+    prof.export_chrome_trace(str(profile_dir / f"{name}_trace.json"))
+    print(f"[profile] {what}: wall {wall_us / 1e3:.2f} ms (profiled), "
+          f"device busy {busy_us / 1e3:.2f} ms, busy share "
+          f"{busy_us / wall_us:.3f}")
+    print("[profile] " + "\n[profile] ".join(table.splitlines()[:30]))
+
+
+def make_trainer(device, *, deformer_res=128, grid_size=64, voxel_res=64,
+                 plane_res=256, steps_per_epoch=TRAIN_FRAMES):
+    """``tools/quality_bench.py:make_flagship(reduced=True)`` in the port,
+    with the 20-epoch schedule of tools/warp_cache_gate.py."""
+    from instantavatar_torch.body import toy_smpl_model
+    from instantavatar_torch.deformers import SNARFDeformer
+    from instantavatar_torch.models import VoxelTriplaneField
+    from instantavatar_torch.train import AvatarModel, make_optimizer
+    body = toy_smpl_model(bone_rings=2, device=device)
+    field = VoxelTriplaneField(voxel_res=voxel_res, plane_res=plane_res,
+                               device=device)
+    deformer = SNARFDeformer(body, resolution=deformer_res,
+                             cano_pose="a_pose", n_iters=6, cand_cap=2,
+                             n_init_active=4)
+    return AvatarModel(body, field, deformer, n_steps=128, k_cap=48,
+                       grid_size=grid_size, eval_n_steps=48, cache_n_cand=1,
+                       samples_per_ray=5.0, noise_steps=500,
+                       optimizer=make_optimizer(
+                           1e-2, max_epochs=20,
+                           steps_per_epoch=steps_per_epoch))
+
+
+def train_phase(device, *, size=TRAIN_SIZE, n_train=TRAIN_FRAMES,
+                n_val=VAL_FRAMES, steps=TRAIN_STEPS,
+                profile_dir: Path | None = None, **config) -> dict:
+    """Phases 7 and 8: train on the capsule scene, render the val frames
+    with the density eval grid. Returns the measured numbers."""
+    from instantavatar_torch.data import (FrameDataset, PatchSampler,
+                                          make_capsule_sequence)
+    from instantavatar_torch.kernels import fused_field_head
+    cuda = device.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    seq = make_capsule_sequence(n_train + n_val, size, size, bone_rings=2,
+                                device=device)
+    print(f"[train] capsule scene {size}px, {n_train}+{n_val} frames: "
+          f"{(time.perf_counter() - t0) * 1e3:.1f} ms, mask coverage "
+          f"{float(seq['masks'].mean()):.3f}")
+
+    def split(sl, name, **kw):
+        sp = {k: v if k == "betas" else v[sl]
+              for k, v in seq["smpl_params"].items()}
+        return FrameDataset(seq["images"][sl], seq["masks"][sl], seq["K"],
+                            seq["c2w"], sp, name, **kw)
+    train = split(slice(0, n_train), "train", sampler=PatchSampler(
+        4, 32, 0.9, rng=np.random.default_rng(0)),
+        bg_rng=np.random.default_rng(1))
+    val = split(slice(n_train, None), "val")
+    avatar = make_trainer(device, steps_per_epoch=n_train, **config)
+    gen = torch.Generator(device=device).manual_seed(0)
+    state = avatar.init(seq["smpl_params"]["betas"], generator=gen)
+    sync()
+
+    fused_field_head.launches = 0
+    times = {True: [], False: []}
+    peaks = {True: 0, False: 0}
+    occ, mse = [], []
+    for i in range(steps):
+        update = state.step % avatar.grid_update_interval == 0
+        batch = train[i % n_train]
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, losses = avatar.step(state, batch, gen)
+        sync()
+        times[update].append((time.perf_counter() - t0) * 1e3)
+        if cuda:
+            peaks[update] = max(peaks[update],
+                                torch.cuda.max_memory_allocated())
+        mse.append(float(losses["mse_loss"]))
+        check(math.isfinite(float(losses["loss"])), f"loss at step {i}")
+        if update:
+            occ.append(int(state.grid.occupancy.sum()))
+    train_launches = fused_field_head.launches
+    first, last = statistics.mean(mse[:10]), statistics.mean(mse[-10:])
+    res = {"update_ms": statistics.median(times[True]),
+           "plain_ms": statistics.median(times[False]),
+           "peak_update_mib": peaks[True] / 2 ** 20,
+           "peak_plain_mib": peaks[False] / 2 ** 20,
+           "mse_first10": first, "mse_last10": last,
+           "train_launches": train_launches}
+    print(f"[train] {steps} steps: median {res['plain_ms']:.2f} ms per "
+          f"plain step ({len(times[False])}), {res['update_ms']:.2f} ms per "
+          f"grid-update step ({len(times[True])}); first steps "
+          f"{[round(t, 1) for t in times[True][:1] + times[False][:2]]} ms")
+    print(f"[train] peak memory: update step "
+          f"{res['peak_update_mib']:.1f} MiB, plain step "
+          f"{res['peak_plain_mib']:.1f} MiB")
+    print(f"[train] occupied cells at each update {occ} (cell_budget "
+          f"{avatar.cell_budget}, grid {avatar.grid_size}^3)")
+    print(f"[train] mse_loss mean of the first 10 steps {first:.5f}, of "
+          f"the last 10 {last:.5f} (ratio {last / first:.3f}, bound "
+          f"{TRAIN_LOSS_FALL_MAX}); fused-head launches {train_launches}")
+    check(last < TRAIN_LOSS_FALL_MAX * first, "the training loss did not fall")
+    check(not cuda or train_launches > 0,
+          "training never launched the head (the cache bake's sigma sort)")
+
+    fused_field_head.launches = 0
+    psnrs = []
+    t0 = time.perf_counter()
+    for j in range(n_val):
+        b = val[j]
+        out = avatar.render_frame(state, {k: v for k, v in b.items()
+                                          if k not in ("rgb", "alpha")},
+                                  image_shape=(size, size))
+        check(bool(torch.isfinite(out["rgb"]).all()), "non-finite val rgb")
+        psnrs.append(psnr(out["rgb"], torch.as_tensor(b["rgb"],
+                                                      device=device)))
+    sync()
+    res["val_ms"] = (time.perf_counter() - t0) * 1e3 / n_val
+    res["val_launches"] = fused_field_head.launches
+    res["val_psnr"] = statistics.mean(psnrs)
+    print(f"[val] {n_val} frames at {size}px with eval_grid=density "
+          f"(build_test_grid + flat render): {res['val_ms']:.1f} ms/frame, "
+          f"PSNR {[round(x, 2) for x in psnrs]} dB, mean "
+          f"{res['val_psnr']:.2f} dB (bound {VAL_MIN_DB}; the JAX cached "
+          f"arm read {JAX_CACHED_EPOCH5_DB} dB at epoch 5 on a TPU v5e, "
+          f"a quality point, not a speed target); fused-head launches "
+          f"{res['val_launches']}")
+    check(not cuda or res["val_launches"] > 0,
+          "the val render never launched the head")
+    check(res["val_psnr"] >= VAL_MIN_DB, "val PSNR below its floor")
+
+    if profile_dir is not None and cuda:
+        batches = [train[(steps + j) % n_train] for j in range(4)]
+
+        def four_steps():
+            nonlocal state
+            for j, b in enumerate(batches):
+                n_rays = int(np.prod(b["rays_o"].shape[:-1]))
+                draws = avatar.draw(gen, n_rays, j == 0)
+                step = (avatar.train_step_update if j == 0
+                        else avatar.train_step)
+                state, _ = step(state, b, draws)
+        profile(four_steps, profile_dir, "torch_train_profile",
+                "1 grid-update + 3 plain training steps")
+    return res
+
+
+def replay_train_golden(device) -> dict:
+    """Phase 9: the JAX training golden replayed through the port's
+    ``grads_and_losses`` on ``device``; returns the worst gaps."""
+    sys.path.insert(0, str(ROOT / "tools"))
+    import make_torch_train_golden as golden   # numpy + the port only
+    steps = golden.replay_golden(device)
+    gaps = [golden.step_gaps(s, s) for s in steps]
+    worst = {k: max(g[k] for g in gaps) for k in gaps[0]}
+    print(f"[train golden] port on {device} vs JAX on CPU, update + plain "
+          f"step: worst loss rel {worst['loss_rel']:.2e} (tol "
+          f"{golden.LOSS_RTOL}), reg_density abs "
+          f"{worst['reg_density_abs']:.2e} (tol {golden.REG_DENSITY_ATOL}), "
+          f"grad rel {worst['grad_rel']:.2e} (tol {golden.GRAD_RTOL}), "
+          f"updated-grid cells differing {worst['occ_diff']}")
+    check(golden.gaps_within_tolerance(worst), "the training golden disagrees")
+    return worst
 
 
 def main(profile_dir: Path | None) -> int:
@@ -167,7 +375,8 @@ def main(profile_dir: Path | None) -> int:
     t0 = time.perf_counter()
     state = avatar.init(np.zeros(10, np.float32))
     torch.cuda.synchronize()
-    print(f"[slice] canonical bake (res 128): "
+    print(f"[slice] init, canonical bake (res 128) + optimizer set-up (the "
+          f"first torch.optim use imports torch._dynamo): "
           f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
     K = np.array([[2000.0, 0, W / 2], [0, 2000.0, H / 2], [0, 0, 1]])
     batch = {"ray_basis": make_ray_basis(K, np.eye(4)),
@@ -229,30 +438,11 @@ def main(profile_dir: Path | None) -> int:
     check(comp_db >= 50.0, "fp32 stream compositing drifted")
 
     if profile_dir is not None:
-        profile_dir.mkdir(parents=True, exist_ok=True)
-        from torch.profiler import ProfilerActivity
-        from torch.profiler import profile as torch_profile
-        with torch_profile(activities=[ProfilerActivity.CPU,
-                                       ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
+        def two_frames():
             for f in frames[:2]:
                 avatar.render_frame(state, f, grid=grid, image_shape=(H, W),
                                     session=session)
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
-        avg = prof.key_averages()
-        dkey = ("device_time_total" if hasattr(avg[0], "device_time_total")
-                else "cuda_time_total")
-        # device kernels only (operator rows repeat their kernels' time)
-        busy_us = sum(getattr(e, "self_" + dkey) for e in avg
-                      if e.device_type == torch.autograd.DeviceType.CUDA)
-        table = avg.table(sort_by="self_" + dkey, row_limit=40)
-        (profile_dir / "torch_profile.txt").write_text(table)
-        prof.export_chrome_trace(str(profile_dir / "torch_trace.json"))
-        print(f"[profile] 2 frames: wall {wall_us / 1e3:.2f} ms (profiled), "
-              f"device busy {busy_us / 1e3:.2f} ms, busy share "
-              f"{busy_us / wall_us:.3f}")
-        print("[profile] " + "\n[profile] ".join(table.splitlines()[:30]))
+        profile(two_frames, profile_dir, "torch_profile", "2 frames")
 
     # -- 5. head swap -----------------------------------------------------------
     # both renders bake afresh, so they differ only in the head
@@ -293,12 +483,20 @@ def main(profile_dir: Path | None) -> int:
           f"max|alpha diff| {alpha_err:.3e}")
     check(gold_db >= GOLDEN_MIN_DB, "golden frame disagrees")
 
+    # -- 7, 8. training and validation --------------------------------------
+    train = train_phase(dev, profile_dir=profile_dir)
+
+    # -- 9. training golden ---------------------------------------------------
+    replay_train_golden(dev)
+
+    by_path = {"turntable": launches, "train": train["train_launches"],
+               "val_render": train["val_launches"]}
     print(json.dumps({"kernels": [{
         "name": "fused_field_head", "route": "cuda",
         "source": "instantavatar_torch/csrc/fused_head.cu",
         "replaces": "instantavatar_tpu/ops/fused_head.py:53",
-        "launches": launches, "max_abs_err": max_err,
-        "ms": kernel_ms, "plain_ms": plain_ms}]}))
+        "launches": sum(by_path.values()), "launches_by_path": by_path,
+        "max_abs_err": max_err, "ms": kernel_ms, "plain_ms": plain_ms}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

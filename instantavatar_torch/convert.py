@@ -4,6 +4,8 @@ Works on numpy arrays only (never imports jax): tests pass
 ``jax.tree.map(np.asarray, params)`` in, so both packages compute from the
 same weights. ``seeded_field_params`` makes such weights from a numpy seed,
 for runs where JAX is not installed (the smoke run on the GPU).
+``train_state_from_numpy`` carries a whole JAX ``TrainState`` across:
+field params, Adam moments and count, grid, step and the canonical bake.
 """
 from __future__ import annotations
 
@@ -11,10 +13,12 @@ import numpy as np
 import torch
 
 from .deformers.fast_snarf import SnarfCanonical
+from .ops.grid_sample import pack_corners_3d
 from .render.density_grid import DensityGridState
 
 __all__ = ["field_params_from_numpy", "seeded_field_params",
-           "snarf_canonical_from_numpy", "grid_state_from_numpy"]
+           "snarf_canonical_from_numpy", "grid_state_from_numpy",
+           "train_state_from_numpy"]
 
 _FEATURES = ("voxel", "plane_xy", "plane_xz", "plane_yz")
 _MLPS = ("sigma_w", "sigma_b", "color_w", "color_b")
@@ -28,11 +32,11 @@ def field_params_from_numpy(params) -> dict[str, torch.Tensor]:
     """``VoxelTriplaneParams`` fields (numpy; NamedTuple or dict) -> a
     ``VoxelTriplaneField`` state dict of CPU float32 tensors (load it with
     ``field.load_state_dict``, which copies onto the field's device)."""
-    sd = {k: torch.as_tensor(np.asarray(_get(params, k), np.float32))
+    sd = {k: torch.as_tensor(np.array(_get(params, k), np.float32))
           for k in _FEATURES}
     for k in _MLPS:
         for i, a in enumerate(_get(params, k)):
-            sd[f"{k}.{i}"] = torch.as_tensor(np.asarray(a, np.float32))
+            sd[f"{k}.{i}"] = torch.as_tensor(np.array(a, np.float32))
     return sd
 
 
@@ -72,10 +76,23 @@ def seeded_field_params(voxel_res: int, plane_res: int, seed: int, *,
 def snarf_canonical_from_numpy(cano, *, device: torch.device | str
                                ) -> SnarfCanonical:
     """JAX ``SnarfCanonical`` fields (numpy) -> the port's canonical state
-    on ``device`` (the JAX bf16 ``lbs_packed`` copy is not carried)."""
-    return SnarfCanonical(**{
-        k: torch.as_tensor(np.array(_get(cano, k)), device=device)
-        for k in SnarfCanonical._fields})
+    on ``device``. The bf16 ``lbs_packed`` rows (a numpy bfloat16 array)
+    come across exactly as torch bf16; where the packed rows are absent
+    they are packed from ``lbs_voxel`` (packing is exact)."""
+    packed = ("lbs_packed", "lbs_packed32")
+    out = {k: torch.as_tensor(np.array(_get(cano, k)), device=device)
+           for k in SnarfCanonical._fields if k not in packed}
+    if all((k in cano) if isinstance(cano, dict) else hasattr(cano, k)
+           for k in packed):
+        out["lbs_packed32"] = torch.as_tensor(
+            np.array(_get(cano, "lbs_packed32")), device=device)
+        out["lbs_packed"] = torch.as_tensor(
+            np.asarray(_get(cano, "lbs_packed")).astype(np.float32),
+            device=device).to(torch.bfloat16)
+    else:
+        out["lbs_packed32"] = pack_corners_3d(out["lbs_voxel"])
+        out["lbs_packed"] = out["lbs_packed32"].to(torch.bfloat16)
+    return SnarfCanonical(**out)
 
 
 def grid_state_from_numpy(grid, *, device: torch.device | str
@@ -89,3 +106,46 @@ def grid_state_from_numpy(grid, *, device: torch.device | str
                                   device=device),
         aabb=torch.as_tensor(np.array(_get(grid, "aabb"), np.float32),
                              device=device))
+
+
+def _adam_state(opt_state):
+    """The optax ``ScaleByAdamState`` (count, mu, nu) inside a numpy copy
+    of ``make_optimizer``'s state (apply_if_finite -> multi_transform ->
+    masked -> (adam, schedule)): the first node with mu and nu fields."""
+    if hasattr(opt_state, "mu") and hasattr(opt_state, "nu"):
+        return opt_state
+    kids = (opt_state.values() if isinstance(opt_state, dict)
+            else opt_state if isinstance(opt_state, (tuple, list)) else ())
+    for kid in kids:
+        found = _adam_state(kid)
+        if found is not None:
+            return found
+    return None
+
+
+def train_state_from_numpy(state, field, model, *,
+                           device: torch.device | str):
+    """A numpy copy of a JAX ``TrainState`` (``jax.tree.map(np.asarray,
+    state)``; params ``{"field": VoxelTriplaneParams, "smpl": ()}``, opt
+    state from ``make_optimizer``) -> the port's ``TrainState``: the field
+    params are loaded into ``field`` (the module ``model`` trains), the
+    optimizer is bound to them with the Adam moments and count, and grid,
+    canonical bake, normalization and step come across."""
+    from .train.model import TrainState
+    field.load_state_dict(field_params_from_numpy(state.params["field"]))
+    opt = model.optimizer.init({"field": list(field.parameters()),
+                                "smpl": []})
+    adam = _adam_state(state.opt_state)
+    if adam is not None:
+        names = [n for n, _ in field.named_parameters()]
+        mu = field_params_from_numpy(adam.mu["field"])
+        nu = field_params_from_numpy(adam.nu["field"])
+        opt.load_moments([mu[n] for n in names], [nu[n] for n in names],
+                         int(adam.count))
+    return TrainState(
+        deformer_cano=snarf_canonical_from_numpy(state.deformer_cano,
+                                                 device=device),
+        grid=grid_state_from_numpy(state.grid, device=device),
+        center=torch.as_tensor(np.array(state.center), device=device),
+        scale=torch.as_tensor(np.array(state.scale), device=device),
+        opt_state=opt, step=int(state.step))

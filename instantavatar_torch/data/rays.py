@@ -7,7 +7,7 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["make_ray_grid", "make_ray_basis"]
+__all__ = ["make_ray_grid", "make_ray_basis", "near_far_from_transl"]
 
 
 def make_ray_grid(K: np.ndarray, c2w: np.ndarray, H: int, W: int
@@ -33,3 +33,12 @@ def make_ray_basis(K: np.ndarray, c2w: np.ndarray) -> np.ndarray:
     cols = (np.stack([[0, 0, 1.0], [1, 0, 0], [0, 1, 0]]) @ Kinv.T) @ R.T
     return np.concatenate([np.asarray(c2w)[:3, 3][None], cols]) \
         .astype(np.float32)
+
+
+def near_far_from_transl(transl: np.ndarray, margin: float = 1.0
+                         ) -> tuple[np.ndarray, np.ndarray]:
+    """Camera at the origin, body at ``transl``: near/far = ||transl|| -/+
+    ``margin``."""
+    dist = np.sqrt(np.square(transl).sum(-1))
+    return ((dist - margin).astype(np.float32),
+            (dist + margin).astype(np.float32))

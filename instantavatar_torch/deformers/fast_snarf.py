@@ -1,7 +1,8 @@
 """Fast-SNARF forward deformer: canonical and per-frame bakes, the Broyden
-correspondence search and the packed inverse-warp cache bake.
+correspondence search, the packed inverse-warp cache bake, skinning and the
+pose-gradient correction.
 
-Port of ``instantavatar_tpu/deformers/fast_snarf.py`` (render side). Same
+Port of ``instantavatar_tpu/deformers/fast_snarf.py``. Same
 geometry and conventions: anisotropic canonical voxel (D, H, W) =
 (res/4, res, res), normalized coords with the z-ratio folded into
 ``inv_scale``, 13 bone-anchored Broyden inits pruned per sample to the
@@ -11,9 +12,10 @@ geometry and conventions: anisotropic canonical voxel (D, H, W) =
 Everything here is fp32: the search is judged by forward-skinning
 residuals of 1e-5 m, which bf16 or TF32 arithmetic would swamp. The
 Broyden search is a Python loop of ``n_iters + 1`` steps over flat (N*I,)
-component tensors, as in the JAX version. The gradient paths (``search``,
-``deform``, ``_grad_correct``, ``make_field_fn``, ``query_weights``)
-belong to training and are not ported yet.
+component tensors, as in the JAX version, and records no autograd graph
+(JAX stops gradients at its inputs): gradients enter only through
+``_grad_correct`` (``version`` 1, the implicit-function correction, or 2,
+re-skinning) and through the field.
 """
 from __future__ import annotations
 
@@ -23,10 +25,11 @@ import numpy as np
 import torch
 
 from ..body import SMPLModel, smpl_forward
-from ..ops.grid_sample import pack_corners_3d
+from ..ops.grid_sample import grid_sample_3d_packed, pack_corners_3d
 from ..ops.knn import knn_points
 from ..render.raymarcher import Rays, compact_samples
-from .packed_cache import ROW_FLOATS, make_packed_cache_fns
+from .packed_cache import (ROW_FLOATS, make_packed_cache_fns,
+                           select_candidate)
 from .smpl_deformer import get_bbox_from_verts, rigid_inverse
 
 __all__ = ["SNARFDeformer", "SnarfCanonical", "SnarfFrame",
@@ -55,9 +58,9 @@ def get_predefined_rest_pose(cano_pose: str | tuple, *,
 
 
 class SnarfCanonical(NamedTuple):
-    """Once-per-subject baked state. (The JAX state's bf16 ``lbs_packed``
-    copy feeds only the training-side weight queries and is not kept.)"""
+    """Once-per-subject baked state."""
     lbs_voxel: torch.Tensor     # (24, D, H, W) smoothed skinning weights
+    lbs_packed: torch.Tensor    # (D*H*W, 192) corner-packed bf16 weights
     lbs_packed32: torch.Tensor  # (D*H*W, 192) corner-packed f32 weights
     offset: torch.Tensor        # (3,) voxel-normalization offset
     inv_scale: torch.Tensor     # (3,) 1/scale with the z-ratio folded in
@@ -98,6 +101,7 @@ class SNARFDeformer:
                  n_iters: int = 10,
                  cvg_threshold: float = 1e-5,
                  dvg_threshold: float = 1e-1,
+                 version: int = 1,
                  cand_cap: int = 4,
                  n_init_active: int | None = None,
                  knn_chunk: int = 8192,
@@ -109,6 +113,9 @@ class SNARFDeformer:
         self.n_iters = n_iters
         self.cvg = cvg_threshold
         self.dvg = dvg_threshold
+        if version not in (1, 2):
+            raise ValueError(f"version must be 1 or 2, got {version}")
+        self.version = version
         self.cand_cap = cand_cap
         self.n_init_active = n_init_active
         self.knn_chunk = knn_chunk
@@ -125,6 +132,11 @@ class SNARFDeformer:
     @property
     def vox_shape(self) -> tuple[int, int, int]:
         return self.resolution // 4, self.resolution, self.resolution
+
+    def normalize(self, canonical: SnarfCanonical, x: torch.Tensor
+                  ) -> torch.Tensor:
+        """SMPL-space canonical point -> [-1, 1] voxel coords."""
+        return (x - canonical.offset) * canonical.inv_scale
 
     def denormalize(self, canonical: SnarfCanonical, x: torch.Tensor
                     ) -> torch.Tensor:
@@ -163,9 +175,11 @@ class SNARFDeformer:
             interior = (vox[:, 1:-1, 1:-1, 1:-1] - mean) * 0.7 + mean
             vox[:, 1:-1, 1:-1, 1:-1] = interior   # vox is this loop's own
             vox = vox / vox.sum(0, keepdim=True)
+        packed32 = pack_corners_3d(vox)
         return SnarfCanonical(
             lbs_voxel=vox,
-            lbs_packed32=pack_corners_3d(vox),
+            lbs_packed=packed32.to(torch.bfloat16),
+            lbs_packed32=packed32,
             offset=offset,
             inv_scale=inv_scale,
             tfs_inv_t=torch.linalg.inv(rest.A[0]),
@@ -216,6 +230,27 @@ class SNARFDeformer:
 
     # -- Broyden search ---------------------------------------------------
 
+    def _sample_J(self, canonical: SnarfCanonical, frame: SnarfFrame,
+                  x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """Trilerp the per-frame transform at canonical points x (..., 3)
+        -> (J (..., 3, 3), t (..., 3)), differentiable in x and in the
+        frame's ``voxel_J_packed``."""
+        J12 = grid_sample_3d_packed(frame.voxel_J_packed, self.vox_shape,
+                                    self.normalize(canonical, x))
+        J = J12.reshape(*J12.shape[:-1], 3, 4)
+        return J[..., :3], J[..., 3]
+
+    def search(self, canonical: SnarfCanonical, frame: SnarfFrame,
+               xd: torch.Tensor
+               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Broyden search on posed points xd (N, 3) -> xc (N, I, 3)
+        canonical candidates (0 where invalid), valid (N, I), J_inv
+        (N, I, 3, 3). No gradients flow."""
+        x, J_inv, valid, _, _ = self._search_raw(canonical, frame, xd)
+        xc = torch.where(valid[..., None], x, torch.zeros_like(x))
+        return xc, self._filter_duplicates(xc, valid), J_inv
+
+    @torch.no_grad()
     def _search_raw(self, canonical: SnarfCanonical, frame: SnarfFrame,
                     xd: torch.Tensor):
         """Broyden root-finding of forward skinning for posed SMPL-space
@@ -358,13 +393,17 @@ class SNARFDeformer:
             I = self.n_init_active
         return min(self.cand_cap, I)
 
+    @torch.no_grad()
     def bake_packed_cache(self, canonical: SnarfCanonical, frame: SnarfFrame,
                           cells: torch.Tensor, net_sigma_fn):
         """Full Broyden search on posed-space cell centers (C, 3) -> (rows
         (C, K*13) [xc, J_inv, valid] per candidate, K = cache_K, sorted by
         baked sigma descending; per-cell max baked sigma (C,), 0 where no
         candidate is valid). ``net_sigma_fn``: (M, 3) canonical pts ->
-        sigma (M,)."""
+        sigma (M,). Not differentiable (the rows come from the search, the
+        sigma only orders them), so it runs without autograd. The JAX
+        ``cell_mask`` (zero rows of padding cells) has no counterpart: the
+        callers pass exactly the cells they bake."""
         x, J_inv, strict, res_sq, in_b = self._search_raw(canonical, frame,
                                                           cells)
         valid = strict | (in_b & (res_sq < self.bake_residual ** 2))
@@ -392,6 +431,70 @@ class SNARFDeformer:
         rows = torch.cat([xc, Jf, valid.float()[..., None]], dim=-1) \
             .reshape(C, K * self.ROW_FLOATS)
         return rows, sigma_cell
+
+    # -- skinning and gradients ------------------------------------------
+
+    def query_weights(self, canonical: SnarfCanonical, xc: torch.Tensor
+                      ) -> torch.Tensor:
+        """(..., 3) canonical pts -> (..., 24) LBS weights: one bf16 packed
+        row per point, lerped in fp32."""
+        return grid_sample_3d_packed(canonical.lbs_packed, self.vox_shape,
+                                     self.normalize(canonical, xc),
+                                     lerp_dtype=torch.float32)
+
+    def forward_skinning(self, canonical: SnarfCanonical, tfs: torch.Tensor,
+                         xc: torch.Tensor) -> torch.Tensor:
+        """Canonical -> posed by the voxel LBS weights, in fp32."""
+        w = self.query_weights(canonical, xc)                  # (..., 24)
+        T = (w[..., :, None, None] * tfs[:, :3]).sum(-3)       # (..., 3, 4)
+        return (T[..., :3] * xc[..., None, :]).sum(-1) + T[..., 3]
+
+    def _grad_correct(self, canonical: SnarfCanonical, frame: SnarfFrame,
+                      xd: torch.Tensor, xc: torch.Tensor,
+                      valid: torch.Tensor, J_inv: torch.Tensor
+                      ) -> torch.Tensor:
+        """Differentiable-pose correction of search candidates xc (N, C, 3).
+        Both versions read the trilerped per-frame transform
+        (``_sample_J``), so pose gradients flow through ``prepare``'s bake.
+        Version 1 adds -J_inv (d fwd_skin / d theta) with a zero value;
+        version 2 re-skins xd with the grid transform at xc."""
+        xc_sg = xc.detach()
+        J, t = self._sample_J(canonical, frame, xc_sg)
+        if self.version == 1:
+            xd_opt = (J * xc_sg[..., None, :]).sum(-1) + t
+            corr = xd_opt - xd_opt.detach()
+            corr = -(J_inv.detach() * corr[..., None, :]).sum(-1)
+            return xc_sg + torch.where(valid[..., None], corr,
+                                       torch.zeros_like(corr))
+        rel = xd[:, None] - t
+        xc2 = (rel[..., :, None] * J).sum(-2)
+        return torch.where(valid[..., None], xc2, torch.zeros_like(xc2))
+
+    # -- field composition -------------------------------------------------
+
+    def make_field_fn(self, canonical: SnarfCanonical, frame: SnarfFrame,
+                      net_apply, eval_mode: bool = False):
+        """Marcher closure over the full search: pts (N, 3) -> (rgb (N, 3),
+        sigma (N,), valid (N,)); the field runs on the first ``cand_cap``
+        valid candidates and the max-sigma one (first on ties) is kept."""
+        def field_fn(pts):
+            xc, valid, J_inv = self.search(canonical, frame, pts)
+            N, I, _ = xc.shape
+            C = min(self.cand_cap, I)
+            if C < I:
+                order, valid = compact_samples(valid, C)
+                xc = xc.gather(1, order[..., None].expand(N, C, 3))
+                if not eval_mode and self.version == 1:
+                    J_inv = J_inv.reshape(N, I, 9).gather(
+                        1, order[..., None].expand(N, C, 9)) \
+                        .reshape(N, C, 3, 3)
+            if not eval_mode:
+                xc = self._grad_correct(canonical, frame, pts, xc, valid,
+                                        J_inv)
+            rgb, sigma = net_apply(xc.reshape(N * C, 3))
+            return select_candidate(rgb.reshape(N, C, 3),
+                                    sigma.reshape(N, C), valid)
+        return field_fn
 
     def make_packed_cache_fns(self, cache_rows: torch.Tensor,
                               grid_aabb: torch.Tensor, grid_size: int,

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["ROW_FLOATS", "make_packed_cache_fns"]
+__all__ = ["ROW_FLOATS", "make_packed_cache_fns", "select_candidate"]
 
 ROW_FLOATS = 13  # xc(3) + J_inv(9) + valid(1)
 
@@ -53,22 +53,25 @@ def make_packed_cache_fns(cache_rows: torch.Tensor, grid_aabb: torch.Tensor,
         delta = pts_all - centers[None]                       # (Q, M, 3)
         xc = xc0[None] + (Ji[None] * delta[:, :, None, None, :]).sum(-1)
         rgb, sigma = net_apply(xc.reshape(Q * M * C, 3))
-        rgb = rgb.reshape(Q, M, C, 3)
-        sigma = sigma.reshape(Q, M, C)
-        finite = torch.isfinite(sigma) & torch.isfinite(rgb).all(-1)
-        ok = val[None] & finite
-        sigma = torch.where(ok, sigma, torch.full_like(sigma, -1e5))
-        if C == 1:
-            sigma_out, rgb_out, any_ok = sigma[..., 0], rgb[..., 0, :], \
-                ok[..., 0]
-        else:
-            best = sigma.argmax(dim=-1, keepdim=True)
-            sigma_out = sigma.gather(-1, best)[..., 0]
-            rgb_out = rgb.gather(
-                -2, best[..., None].expand(*best.shape, 3))[..., 0, :]
-            any_ok = ok.any(dim=-1)
-        rgb_out = torch.where(any_ok[..., None], rgb_out,
-                              torch.zeros_like(rgb_out))
-        return rgb_out, sigma_out, any_ok
+        return select_candidate(rgb.reshape(Q, M, C, 3),
+                                sigma.reshape(Q, M, C), val[None])
 
     return probe_fn, field_fn
+
+
+def select_candidate(rgb: torch.Tensor, sigma: torch.Tensor,
+                     valid: torch.Tensor
+                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Per sample, the candidate with the largest sigma (first on ties)
+    among the valid ones with finite outputs: rgb (..., C, 3), sigma
+    (..., C), valid (..., C) -> (rgb (..., 3), sigma (...,), any (...,));
+    rgb is 0 and sigma -1e5 where no candidate is usable."""
+    ok = valid & torch.isfinite(sigma) & torch.isfinite(rgb).all(-1)
+    sigma = torch.where(ok, sigma, torch.full_like(sigma, -1e5))
+    best = sigma.argmax(dim=-1, keepdim=True)
+    sigma_out = sigma.gather(-1, best)[..., 0]
+    rgb_out = rgb.gather(-2, best[..., None].expand(*best.shape, 3))[..., 0, :]
+    any_ok = ok.any(dim=-1)
+    rgb_out = torch.where(any_ok[..., None], rgb_out,
+                          torch.zeros_like(rgb_out))
+    return rgb_out, sigma_out, any_ok

@@ -37,9 +37,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _SIGMA_DIMS = ((None, 64), (64, 16))           # E -> 64 -> 16
 _COLOR_DIMS = ((15, 64), (64, 64), (64, 3))    # 15 -> 64 -> 64 -> 3
 
-_NO_GRAD_MSG = ("the fused field head is forward-only on CUDA; a backward "
-                "pass arrives with the training-step port (ROADMAP.md "
-                "queue 1, item 7). Call it under torch.no_grad().")
+_NO_GRAD_MSG = ("the fused field head is forward-only on CUDA: call it "
+                "under torch.no_grad(), or train through the _mlp head "
+                "(VoxelTriplaneField.apply(..., head=\"mlp\")), as JAX does")
 
 
 class BuildInfo(NamedTuple):

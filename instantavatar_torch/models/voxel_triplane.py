@@ -5,13 +5,17 @@ Port of ``instantavatar_tpu/models/voxel_triplane.py`` as an
 corner-packed (Gp+1)^2 x Cp planes, sampled in bf16 (the rows are cast to
 bf16, as in JAX) -> E = Cv + 3*Cp features. Head: the NGP layout (sigma
 MLP E -> 64 -> 16 with raw sigma at geo[0], colour MLP 15 -> 64 -> 64 ->
-3 with sigmoid), evaluated by ``kernels.fused_field_head``: the CUDA
-kernel for CUDA tensors (inference only), its plain version for CPU
-tensors.
+3 with sigmoid). ``apply`` names the head explicitly:
 
-The head therefore follows the fused kernel's numerics (fp32 hidden bias
-before the bf16 cast), which differ from JAX ``_mlp`` (bf16 bias after
-the cast) by up to ~1e-2 on the outputs; the parity tests state that gap.
+  * ``head="fused"`` (inference): ``kernels.fused_field_head``, the CUDA
+    kernel for CUDA tensors (forward only: it raises under autograd), its
+    plain version for CPU tensors. It follows the kernel's numerics (fp32
+    hidden bias before the bf16 cast), which differ from JAX ``_mlp``
+    (bf16 bias after the cast) by up to ~1e-2 on the outputs; the parity
+    tests state that gap.
+  * ``head="mlp"`` (training): ``mlp_head``, JAX ``_mlp``'s rounding
+    points, differentiable. Gradients reach the fp32 feature parameters
+    through the bf16 casts of the packed corner rows, as in JAX.
 """
 from __future__ import annotations
 
@@ -21,9 +25,21 @@ from torch import nn
 from ..kernels.fused_head import _NO_GRAD_MSG, fused_field_head
 from ..ops.grid_sample import (grid_sample_2d_packed, grid_sample_3d_packed,
                                pack_corners_2d, pack_corners_3d)
-from .ngp import _init_mlp
+from .ngp import _init_mlp, _mlp
 
-__all__ = ["VoxelTriplaneField"]
+__all__ = ["VoxelTriplaneField", "mlp_head"]
+
+
+def mlp_head(enc: torch.Tensor, sigma_w, sigma_b, color_w, color_b,
+             dtype: torch.dtype = torch.bfloat16
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The JAX ``VoxelTriplaneField.apply`` head through ``_mlp`` (same
+    signature as ``fused_field_head``): (M, E) -> (color (M, 3), raw sigma
+    (M,))."""
+    geo = _mlp(enc, sigma_w, sigma_b, dtype=dtype)
+    color = _mlp(geo[..., 1:], color_w, color_b, final_act=torch.sigmoid,
+                 dtype=dtype)
+    return color, geo[..., 0]
 
 
 class VoxelTriplaneField(nn.Module):
@@ -108,19 +124,29 @@ class VoxelTriplaneField(nn.Module):
                 [w.to(dt) for w in self.color_w], list(self.color_b))
 
     def apply(self, x: torch.Tensor, center: torch.Tensor,
-              scale: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+              scale: torch.Tensor, *, head: str = "fused"
+              ) -> tuple[torch.Tensor, torch.Tensor]:
         """Points x (..., 3) -> (color (..., 3) in [0, 1], raw sigma
-        (...,)). ``center``/``scale`` from ``bbox_center_scale``. (This
+        (...,)). ``center``/``scale`` from ``bbox_center_scale``; ``head``
+        "fused" (inference) or "mlp" (training, differentiable). (This
         overrides ``nn.Module.apply``: the name follows the JAX field.)"""
-        if x.is_cuda and torch.is_grad_enabled():
+        if head not in ("fused", "mlp"):
+            raise ValueError(f"unknown head {head!r}")
+        if head == "fused" and x.is_cuda and torch.is_grad_enabled():
             raise NotImplementedError(_NO_GRAD_MSG)
         lead = x.shape[:-1]
-        enc = self.encode((x - center) / scale + 0.5).reshape(-1, self.sigma_dims[0])
-        head = self.head_fn or fused_field_head
-        color, sigma = head(enc.contiguous(), *self._head_args())
+        enc = self.encode((x - center) / scale + 0.5).reshape(
+            -1, self.sigma_dims[0])
+        if head == "mlp":
+            color, sigma = mlp_head(enc, self.sigma_w, self.sigma_b,
+                                    self.color_w, self.color_b,
+                                    self.compute_dtype)
+        else:
+            color, sigma = (self.head_fn or fused_field_head)(
+                enc.contiguous(), *self._head_args())
         return color.reshape(*lead, 3), sigma.reshape(lead)
 
     def density(self, x: torch.Tensor, center: torch.Tensor,
-                scale: torch.Tensor) -> torch.Tensor:
-        """Raw sigma only (the fused head computes colour alongside)."""
-        return self.apply(x, center, scale)[1]
+                scale: torch.Tensor, *, head: str = "fused") -> torch.Tensor:
+        """Raw sigma only (both heads compute colour alongside)."""
+        return self.apply(x, center, scale, head=head)[1]

@@ -1,19 +1,58 @@
-"""Segmented volume compositing over a ray-major flat sample stream.
+"""Volume compositing: the dense per-ray compositor (training) and the
+segmented compositor over a ray-major flat sample stream (flat render).
 
-Port of ``composite_stream`` from ``instantavatar_tpu/render/
-compositing.py``, with the same semantics: alpha = 1 - exp(-relu(sigma)
-delta), per-ray transmittance from ONE cumsum of log(1 - alpha + 1e-10)
-over the whole stream rebased at each ray's first sample, and per-ray sums
-as cumsum differences. Note the precision consequence of the single
-stream-wide cumsum: its running value grows with the stream length, so
-rays late in a long fp32 stream see rounding of that size; passing
-float64 inputs runs the same formula in float64.
+Port of ``composite`` and ``composite_stream`` from
+``instantavatar_tpu/render/compositing.py``, with the same semantics:
+alpha = 1 - exp(-relu(sigma) delta), transmittance the exclusive product
+of (1 - alpha + 1e-10). ``composite`` is differentiable. ``composite_stream``
+takes the transmittance from ONE cumsum of log(1 - alpha + 1e-10) over the
+whole stream rebased at each ray's first sample, and per-ray sums as cumsum
+differences. Note the precision consequence of the single stream-wide
+cumsum: its running value grows with the stream length, so rays late in a
+long fp32 stream see rounding of that size; passing float64 inputs runs
+the same formula in float64.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
-__all__ = ["composite_stream"]
+__all__ = ["CompositeOutput", "composite", "composite_stream"]
+
+
+class CompositeOutput(NamedTuple):
+    rgb: torch.Tensor      # (N, 3)
+    depth: torch.Tensor    # (N,)
+    alpha: torch.Tensor    # (N,) accumulated opacity (sum of weights)
+    weights: torch.Tensor  # (N, S) per-sample compositing weights
+    trans: torch.Tensor    # (N,) final transmittance
+
+
+def composite(sigma: torch.Tensor, rgb: torch.Tensor, z: torch.Tensor,
+              delta: torch.Tensor, valid: torch.Tensor,
+              bg_color: torch.Tensor | None = None) -> CompositeOutput:
+    """Front-to-back compositing of (N, S) per-ray sample sequences.
+
+    sigma (N, S) raw density (relu applied here), rgb (N, S, 3), z (N, S),
+    delta (N, S) or (N, 1) step sizes, valid (N, S) bool (invalid samples
+    contribute nothing), bg_color (N, 3) or (3,), None for white. All
+    results fp32.
+    """
+    tau = torch.relu(sigma.float()) * delta
+    tau = torch.where(valid, tau, torch.zeros_like(tau))
+    alpha = 1.0 - torch.exp(-tau)
+    # exclusive cumprod: T_i = prod_{j<i} (1 - alpha_j + eps)
+    shifted = torch.cat([torch.ones_like(alpha[..., :1]),
+                         1.0 - alpha[..., :-1] + 1e-10], dim=-1)
+    trans = torch.cumprod(shifted, dim=-1)
+    weights = alpha * trans
+    trans_final = trans[..., -1] * (1.0 - alpha[..., -1] + 1e-10)
+    color = (weights[..., None] * rgb.float()).sum(-2)
+    bg = 1.0 if bg_color is None else bg_color.float()
+    color = color + trans_final[..., None] * bg
+    return CompositeOutput(color, (weights * z).sum(-1), weights.sum(-1),
+                           weights, trans_final)
 
 
 def composite_stream(sigma: torch.Tensor, rgb: torch.Tensor,

@@ -1,9 +1,25 @@
-"""Avatar model composition, render side: the flat-stream frame render.
+"""Avatar model composition: the training step and the flat-stream frame
+render.
 
-Port of the inference path of ``instantavatar_tpu/train/model.py``
-(``AvatarModel.init``, ``build_pose_grid``, the flat branch of
+Port of ``instantavatar_tpu/train/model.py``. Training
+(``TrainState``, ``init``, ``render``, ``grads_and_losses``,
+``apply_grads``, ``train_step``/``train_step_update``/``step``) follows the
+JAX step: every ``grid_update_interval`` steps a jittered full-search
+density sweep updates the occupancy grid and adds the occupancy
+regularizer; the render marches (N, k_cap) slots through the cached-search
+field closure (``train_warp_cache``: a per-cell warp-cache bake on the
+first ``cell_budget`` occupied cells in flat order, one cached-Newton step
+and the pose correction per sample); then ``nerf_loss``, autograd and the
+grouped Adam. The field's parameters live in its module and are updated in
+place; the step's random draws (``StepDraws``) come from a
+``torch.Generator`` or are passed in. Training evaluates the head through
+``_mlp`` (``head="mlp"``); the no-grad parts (the bake's candidate sort,
+the test-grid sweep, the frame render) use the fused head, the CUDA kernel
+on the card.
+
+Inference (``build_pose_grid``, ``build_test_grid``, the flat branch of
 ``_render_frame_fused``, ``RenderSession``, ``render_frame``,
-``render_frames``). A frame renders in five stages:
+``render_frames``) renders a frame in five stages:
 
   1. frame bake (``deformer.prepare``) and the world->SMPL ray transform;
   4. packed warp-cache bake on the occupied grid cells (Broyden on cell
@@ -36,28 +52,44 @@ import torch
 
 from ..body import SMPLModel
 from ..deformers.fast_snarf import SNARFDeformer, SnarfCanonical
+from ..deformers.packed_cache import select_candidate
+from ..losses.nerf_loss import nerf_loss
 from ..models.ngp import bbox_center_scale
 from ..models.voxel_triplane import VoxelTriplaneField
 from ..ops.knn import knn_points
 from ..render.compositing import composite_stream
-from ..render.density_grid import DensityGridState, make_grid_state
-from ..render.raymarcher import Rays, ray_aabb, sample_z
+from ..render.density_grid import (DensityGridState, initialize_grid,
+                                   make_grid_state, occupancy_lookup,
+                                   occupancy_regularizer, update_grid)
+from ..render.raymarcher import Rays, ray_aabb, render_rays, sample_z
+from .optim import GroupedAdam, OptimizerSpec, make_optimizer
 
-__all__ = ["AvatarModel", "AvatarState", "FlatStream", "RenderSession",
-           "WORLD_AABB"]
+__all__ = ["AvatarModel", "TrainState", "StepDraws",
+           "FlatStream", "RenderSession", "WORLD_AABB"]
 
 # the reference's hard-coded SMPL-space scene box
 WORLD_AABB = ((-1.25, -1.55, -1.25), (1.25, 0.95, 1.25))
 
 
-class AvatarState(NamedTuple):
-    """Per-subject render state (the JAX ``TrainState`` without params,
-    optimizer state and step: the field's parameters live in its module).
-    """
+class TrainState(NamedTuple):
+    """Per-subject state (the JAX ``TrainState``; the field's parameters
+    live in its module). Rendering reads only the first four fields."""
     deformer_cano: SnarfCanonical
     grid: DensityGridState
     center: torch.Tensor   # (3,) field input normalization
     scale: torch.Tensor    # (3,)
+    opt_state: GroupedAdam | None = None  # bound to the field's parameters
+    step: int = 0
+
+
+class StepDraws(NamedTuple):
+    """One training step's random numbers (JAX draws them from the step
+    key): stratified jitter (N, n_steps) and sigma noise (N, K) of the
+    render, and the grid-update jitter (G, G, G, 3) (None on plain steps).
+    All uniform in [0, 1) except the standard-normal noise."""
+    jitter: torch.Tensor
+    noise: torch.Tensor
+    grid_jitter: torch.Tensor | None = None
 
 
 class FlatStream(NamedTuple):
@@ -93,7 +125,7 @@ def _as_tensor(v, device) -> torch.Tensor:
 
 
 class AvatarModel:
-    """Static composition descriptor for the render path."""
+    """Composition descriptor: body, field module, deformer and knobs."""
 
     def __init__(self, body_model: SMPLModel,
                  field: VoxelTriplaneField,
@@ -102,9 +134,12 @@ class AvatarModel:
                  n_steps: int = 256,
                  k_cap: int | None = 64,
                  grid_size: int = 64,
+                 grid_update_interval: int = 20,
+                 noise_steps: int = 1000,
                  eval_grid: str = "density",
                  shell_margin: float = 0.12,
                  use_warp_cache: bool = True,
+                 train_warp_cache: bool = True,
                  cache_n_cand: int = 1,
                  eval_sampling: str = "flat",
                  term_T: float | None = 1e-5,
@@ -112,13 +147,22 @@ class AvatarModel:
                  eval_n_steps: int | None = None,
                  cell_budget: int | None = None,
                  prepass_steps: int = 96,
-                 prepass_block: int | None = None):
-        """Knobs as in the JAX ``AvatarModel``. The flat render reads
-        ``grid_size``, ``eval_grid``, ``shell_margin``, ``cache_n_cand``,
-        ``term_T``, ``prepass_steps`` and ``prepass_block``. ``n_steps``,
-        ``k_cap`` and ``eval_n_steps`` drive the training and dense paths
-        (not ported yet); ``samples_per_ray`` and ``cell_budget`` only sized
-        the JAX path's static buffers. Those five are accepted and unused.
+                 prepass_block: int | None = None,
+                 loss_weights: dict[str, float] | None = None,
+                 optimizer: OptimizerSpec | None = None):
+        """Knobs as in the JAX ``AvatarModel``.
+
+        Training reads ``n_steps`` (dense samples per ray), ``k_cap``
+        (evaluated slots per ray), ``grid_size``, ``grid_update_interval``,
+        ``noise_steps`` (sigma noise std 1 before this step, 0 disables),
+        ``train_warp_cache``, ``cell_budget`` (occupied cells the cached
+        search bakes, default max(G^3 / 8, 1024)), ``loss_weights``
+        (w_rgb, w_alpha, w_reg) and ``optimizer`` (default: optax.adam(1e-2)'s
+        settings). The flat render reads ``grid_size``, ``eval_grid``,
+        ``shell_margin``, ``cache_n_cand``, ``term_T``, ``prepass_steps`` and
+        ``prepass_block``. ``samples_per_ray`` and ``eval_n_steps`` sized the
+        JAX render's static buffers and dense eval; they are accepted for
+        signature parity and unused.
         """
         if not use_warp_cache or eval_sampling != "flat" or term_T is None:
             raise NotImplementedError(
@@ -128,13 +172,28 @@ class AvatarModel:
         self.body = body_model
         self.field = field
         self.deformer = deformer
+        self.n_steps = n_steps
+        self.k_cap = k_cap
         self.grid_size = grid_size
+        self.grid_update_interval = grid_update_interval
+        self.noise_steps = noise_steps
         self.eval_grid = eval_grid
         self.shell_margin = shell_margin
+        self.train_warp_cache = train_warp_cache
         self.cache_n_cand = cache_n_cand
         self.term_T = term_T
+        self.cell_budget = cell_budget or max(grid_size ** 3 // 8, 1024)
         self.prepass_steps = prepass_steps
         self.prepass_block = prepass_block
+        self.loss_weights = dict(w_rgb=1.0, w_alpha=0.1, w_reg=0.1)
+        unknown = set(loss_weights or ()) - set(self.loss_weights)
+        if unknown:   # never silently drop a loss term a config asks for
+            raise NotImplementedError(
+                f"loss weight(s) {sorted(unknown)}: only nerf_loss is "
+                f"ported (ngp_loss/LPIPS waits, ROADMAP.md)")
+        self.loss_weights.update(loss_weights or {})
+        self.optimizer = optimizer or make_optimizer(
+            1e-2, betas=(0.9, 0.999), eps=1e-8, skip_nonfinite=0)
 
     @property
     def device(self) -> torch.device:
@@ -142,17 +201,23 @@ class AvatarModel:
 
     # -- state ------------------------------------------------------------
 
-    def init(self, betas) -> AvatarState:
+    def init(self, betas, generator: torch.Generator | None = None
+             ) -> TrainState:
         """Bake the deformer's canonical state and the field's input
-        normalization (the field's parameters live in its module). The
-        grid starts fully occupied over ``WORLD_AABB``."""
+        normalization, and bind the optimizer to the field's parameters
+        (re-initialized from ``generator`` when one is given). The grid
+        starts fully occupied over ``WORLD_AABB``."""
+        if generator is not None:
+            self.field.init(generator)
         cano = self.deformer.build_canonical(
             _as_tensor(betas, self.device).reshape(1, -1))
         center, scale = bbox_center_scale(cano.bbox)
         grid = make_grid_state(WORLD_AABB, self.grid_size, device=self.device)
         grid = grid._replace(occupancy=torch.ones_like(grid.occupancy))
-        return AvatarState(deformer_cano=cano, grid=grid, center=center,
-                           scale=scale)
+        return TrainState(deformer_cano=cano, grid=grid, center=center,
+                          scale=scale, opt_state=self.optimizer.init(
+                              {"field": list(self.field.parameters()),
+                               "smpl": []}))
 
     def _prepare(self, cano, batch):
         dev = self.device
@@ -161,8 +226,192 @@ class AvatarModel:
                     for k in ("betas", "body_pose", "global_orient",
                               "transl")))
 
+    # -- training ---------------------------------------------------------
+
+    def _net(self, state: TrainState, head: str = "fused"):
+        return lambda x: self.field.apply(x, state.center, state.scale,
+                                          head=head)
+
+    def render(self, state: TrainState, batch, *, dstate=None,
+               grid: DensityGridState | None = None,
+               draws: StepDraws | None = None, noise_std: float = 0.0
+               ) -> dict:
+        """Training render (the JAX ``eval_mode=False`` branch) of one ray
+        bundle (``rays_o``/``rays_d`` of any leading shape, flat or patch
+        stacks) through the dense marcher, the head evaluated through
+        ``_mlp`` and, with ``train_warp_cache`` and a grid, the
+        cached-search closure. Near/far come from the world->SMPL ray
+        transform; batch near/far are overwritten by it, as in JAX."""
+        cano = state.deformer_cano
+        if dstate is None:
+            dstate = self._prepare(cano, batch)
+        dev = self.device
+        t = {k: _as_tensor(batch[k], dev) for k in ("rays_o", "rays_d")}
+        shape = t["rays_o"].shape[:-1]
+        rays_s = self.deformer.transform_rays_w2s(dstate, Rays(
+            o=t["rays_o"], d=t["rays_d"], near=None, far=None))
+        bg = batch.get("bg_color")
+        bg = None if bg is None else _as_tensor(bg, dev).reshape(-1, 3)
+        net = self._net(state, "mlp")
+        if self.train_warp_cache and grid is not None:
+            field_fn = self._make_train_cache_field_fn(net, state, dstate,
+                                                       grid)
+        else:
+            field_fn = self.deformer.make_field_fn(cano, dstate, net)
+        out = render_rays(
+            field_fn, rays_s,
+            occupancy_fn=(None if grid is None
+                          else lambda pts: occupancy_lookup(grid, pts)),
+            aabb=(grid.aabb if grid is not None
+                  else self.deformer.bbox_deformed(dstate)),
+            n_steps=self.n_steps, k_cap=self.k_cap,
+            jitter=None if draws is None else draws.jitter,
+            noise=None if draws is None else draws.noise,
+            noise_std=noise_std, bg_color=bg)
+        return {"rgb": out.rgb.reshape(*shape, 3),
+                "depth": out.depth.reshape(shape),
+                "alpha": out.alpha.reshape(shape),
+                "counter": out.counter.reshape(shape),
+                "weights": out.weights.reshape(*shape, -1)}
+
+    def _make_train_cache_field_fn(self, net, state: TrainState, dstate,
+                                   grid: DensityGridState):
+        """Cached-search training closure: bake the packed warp cache on
+        the first ``cell_budget`` occupied cells in flat order (cells past
+        the budget keep zero rows, so their samples are invalid, as in
+        JAX), then resolve each sample by one row gather and one
+        cached-Newton step, apply the pose correction at that
+        correspondence and evaluate ``net`` on every candidate. The bake's
+        candidate sort runs without autograd through the fused head; the
+        closure then takes the max-sigma candidate over all K, so the
+        order does not change its result (ties aside)."""
+        G = self.grid_size
+        aabb0, span = grid.aabb[0], grid.aabb[1] - grid.aabb[0]
+        cano = state.deformer_cano
+        with torch.no_grad():
+            cell_idx = torch.nonzero(grid.occupancy.reshape(-1))[
+                :self.cell_budget, 0]
+            ijk = torch.stack([cell_idx // (G * G), (cell_idx // G) % G,
+                               cell_idx % G], dim=-1).float()
+            rows, _ = self.deformer.bake_packed_cache(
+                cano, dstate, aabb0 + (ijk + 0.5) / G * span,
+                net_sigma_fn=lambda x: self._net(state)(x)[1])
+            cache = torch.zeros((G ** 3, rows.shape[-1]), device=rows.device)
+            cache[cell_idx] = rows
+        R = self.deformer.ROW_FLOATS
+        K = rows.shape[-1] // R
+
+        def field_fn(pts):
+            M = pts.shape[0]
+            rel = (pts - aabb0) / span
+            inside = ((rel >= 0.0) & (rel < 1.0)).all(dim=-1)
+            cell = (rel * G).to(torch.int32).clamp(0, G - 1)
+            r = cache[((cell[:, 0] * G + cell[:, 1]) * G
+                       + cell[:, 2]).long()].reshape(M, K, R)
+            ctr = aabb0 + (cell.float() + 0.5) / G * span
+            Ji = r[..., 3:12].reshape(M, K, 3, 3)
+            xc = r[..., 0:3] + (Ji * (pts - ctr)[:, None, None, :]).sum(-1)
+            val = (r[..., 12] > 0.5) & inside[:, None]
+            xc = self.deformer._grad_correct(cano, dstate, pts, xc, val, Ji)
+            rgb, sigma = net(xc.reshape(M * K, 3))
+            return select_candidate(rgb.reshape(M, K, 3),
+                                    sigma.reshape(M, K), val)
+
+        return field_fn
+
+    def _density_fn(self, state: TrainState, dstate, eval_mode: bool = False):
+        """Grid query: full search + field sigma on SMPL-space pts, 0 where
+        no candidate is valid. Differentiable (``_mlp`` head) for the
+        training update, no-grad fused head for the test grid."""
+        field_fn = self.deformer.make_field_fn(
+            state.deformer_cano, dstate,
+            self._net(state, "fused" if eval_mode else "mlp"),
+            eval_mode=eval_mode)
+
+        def fn(pts):
+            _, sigma, valid = field_fn(pts)
+            return torch.where(valid, sigma, torch.zeros_like(sigma))
+        return fn
+
+    def draw(self, generator: torch.Generator, n_rays: int,
+             with_grid_update: bool) -> StepDraws:
+        """A step's random numbers from ``generator`` (on its device)."""
+        def rand(*shape):
+            return torch.rand(shape, generator=generator,
+                              device=generator.device)
+        K = (self.k_cap if self.k_cap is not None
+             and self.k_cap < self.n_steps else self.n_steps)
+        return StepDraws(
+            jitter=rand(n_rays, self.n_steps),
+            noise=torch.randn((n_rays, K), generator=generator,
+                              device=generator.device),
+            grid_jitter=(rand(*(self.grid_size,) * 3, 3)
+                         if with_grid_update else None))
+
+    def grads_and_losses(self, state: TrainState, batch, draws: StepDraws,
+                         with_grid_update: bool = False
+                         ) -> tuple[dict, DensityGridState]:
+        """Loss and gradients of one step: the gradients land in the field
+        parameters' ``.grad``; returns (loss components, the grid the step
+        leaves)."""
+        for p in self.field.parameters():
+            p.grad = None
+        dev = self.device
+        b = {k: _as_tensor(batch[k], dev) for k in ("rgb", "alpha")}
+        dstate = self._prepare(state.deformer_cano, batch)
+        new_grid, reg = state.grid, torch.zeros((), device=dev)
+        if with_grid_update:
+            new_grid, density_norm, old_occ = update_grid(
+                state.grid, self._density_fn(state, dstate),
+                draws.grid_jitter)
+            # first 500 steps: judge against the fresh grid
+            reg = occupancy_regularizer(
+                density_norm,
+                new_grid.occupancy if state.step < 500 else old_occ,
+                state.step, self.grid_update_interval)
+        noise_std = (1.0 if self.noise_steps > 0
+                     and state.step < self.noise_steps else 0.0)
+        predicts = self.render(state, batch, dstate=dstate, grid=new_grid,
+                               draws=draws, noise_std=noise_std)
+        total, losses = nerf_loss(predicts, b, **self.loss_weights)
+        total = total + reg
+        total.backward()
+        losses = {k: v.detach() for k, v in losses.items()}
+        losses["loss"] = total.detach()
+        losses["reg_occupancy"] = reg.detach()
+        losses["counter_avg"] = predicts["counter"].float().mean()
+        return losses, new_grid
+
+    def apply_grads(self, state: TrainState, new_grid: DensityGridState
+                    ) -> TrainState:
+        """Optimizer update from the parameters' gradients (in place)."""
+        state.opt_state.step()
+        return state._replace(grid=new_grid, step=state.step + 1)
+
+    def train_step(self, state: TrainState, batch, draws: StepDraws
+                   ) -> tuple[TrainState, dict]:
+        losses, grid = self.grads_and_losses(state, batch, draws, False)
+        return self.apply_grads(state, grid), losses
+
+    def train_step_update(self, state: TrainState, batch, draws: StepDraws
+                          ) -> tuple[TrainState, dict]:
+        """Train step + occupancy-grid update + occupancy regularizer."""
+        losses, grid = self.grads_and_losses(state, batch, draws, True)
+        return self.apply_grads(state, grid), losses
+
+    def step(self, state: TrainState, batch,
+             generator: torch.Generator) -> tuple[TrainState, dict]:
+        """One training step at the reference cadence: a grid update every
+        ``grid_update_interval`` steps, draws from ``generator``."""
+        update = state.step % self.grid_update_interval == 0
+        n_rays = int(np.prod(np.shape(batch["rays_o"])[:-1]))
+        draws = self.draw(generator, n_rays, update)
+        if update:
+            return self.train_step_update(state, batch, draws)
+        return self.train_step(state, batch, draws)
+
     @torch.no_grad()
-    def build_pose_grid(self, state: AvatarState, batch) -> DensityGridState:
+    def build_pose_grid(self, state: TrainState, batch) -> DensityGridState:
         """Per-pose grid from the posed body shell: cells within
         max(shell_margin, half a cell diagonal) of a posed vertex, over the
         forward-warped voxel's AABB."""
@@ -181,12 +430,27 @@ class AvatarModel:
             density_cached=torch.where(occ, 100.0 * 4.6, 0.0),
             occupancy=occ, aabb=aabb)
 
+    @torch.no_grad()
+    def build_test_grid(self, state: TrainState, batch,
+                        jitter: torch.Tensor | None = None
+                        ) -> DensityGridState:
+        """Per-frame test grid (``eval_grid="density"``): the deformed
+        body's AABB and the max density over 5 jittered full-search passes,
+        the head being the fused one. ``jitter`` (5, G, G, G, 3) uniform
+        draws; by default a generator seeded 0 on the model's device (JAX
+        uses ``PRNGKey(0)``: same role, other numbers)."""
+        dstate = self._prepare(state.deformer_cano, batch)
+        if jitter is None:
+            g = torch.Generator(device=self.device).manual_seed(0)
+            jitter = torch.rand((5,) + (self.grid_size,) * 3 + (3,),
+                                generator=g, device=self.device)
+        return initialize_grid(self.deformer.bbox_deformed(dstate),
+                               self._density_fn(state, dstate, True), jitter,
+                               self.grid_size)
+
     # -- frame render -------------------------------------------------------
 
-    def _net(self, state: AvatarState):
-        return lambda x: self.field.apply(x, state.center, state.scale)
-
-    def _bake(self, state: AvatarState, dstate, grid: DensityGridState):
+    def _bake(self, state: TrainState, dstate, grid: DensityGridState):
         """Stage 4: warp-cache rows for every occupied cell, scattered into
         a (G^3, K*13) table, and the per-cell sigma table (relu of the max
         baked sigma where a candidate is valid, -1 elsewhere) that drives
@@ -211,7 +475,7 @@ class AvatarModel:
                                           torch.full_like(sig_cell, -1.0))
         return cache, sig_table, int(cell_idx.numel())
 
-    def _frame_key(self, state: AvatarState, batch, grid):
+    def _frame_key(self, state: TrainState, batch, grid):
         """Bake-memo key: field, state and grid identity, parameter
         versions (in-place updates bump them), betas and body pose by
         content. The session pins the identified objects while it holds
@@ -232,7 +496,7 @@ class AvatarModel:
                          f"{self.prepass_block or '3 or 2'}-pixel blocks")
 
     @torch.no_grad()
-    def render_stream(self, state: AvatarState, batch, grid: DensityGridState,
+    def render_stream(self, state: TrainState, batch, grid: DensityGridState,
                       image_shape: tuple[int, int],
                       session: RenderSession | None = None) -> FlatStream:
         """Stages 1-5' of the flat render for a basis-only batch
@@ -372,28 +636,27 @@ class AvatarModel:
                 "alpha": A[:, 4], "counter": cnt,
                 "n_samples": int(stream.z.shape[0]), "n_occ": stream.n_occ}
 
-    def render_frame(self, state: AvatarState, batch,
+    def render_frame(self, state: TrainState, batch,
                      grid: DensityGridState | None = None,
                      image_shape: tuple[int, int] | None = None,
                      session: RenderSession | None = None) -> dict:
         """Full-frame inference from a basis-only batch. ``grid`` None
-        builds the per-pose grid (``eval_grid="smpl_shell"``). Returns
+        builds the frame's grid: ``build_test_grid`` (``eval_grid=
+        "density"``) or ``build_pose_grid`` (``"smpl_shell"``). Returns
         device tensors rgb (n, 3), depth, alpha, counter (n,) plus the
         frame's kept-sample and occupied-cell counts."""
         if image_shape is None:
             raise ValueError("the flat render needs image_shape")
         if grid is None:
-            if self.eval_grid != "smpl_shell":
-                raise NotImplementedError(
-                    "eval_grid='density' needs initialize_grid and the "
-                    "full-search field path (ROADMAP.md queue 1, item 6 "
-                    "and item 8: density-grid sweep / build_test_grid); "
-                    "pass a grid or use eval_grid='smpl_shell'")
-            grid = self.build_pose_grid(state, batch)
+            if self.eval_grid not in ("density", "smpl_shell"):
+                raise ValueError(f"unknown eval_grid {self.eval_grid!r}")
+            grid = (self.build_test_grid(state, batch)
+                    if self.eval_grid == "density"
+                    else self.build_pose_grid(state, batch))
         stream = self.render_stream(state, batch, grid, image_shape, session)
         return self.composite_frame(stream, batch.get("bg_color"))
 
-    def render_frames(self, state: AvatarState, batches,
+    def render_frames(self, state: TrainState, batches,
                       grid: DensityGridState | None = None,
                       image_shape: tuple[int, int] | None = None,
                       session: RenderSession | None = None):

@@ -2,6 +2,7 @@
 ``AvatarModel.render_frame`` vs the port's at 48x48 (flat mode, same
 converted params, canonical state and shell grid), the committed JAX
 golden frame at 96x96, the bake memo, and a jax-free import."""
+import os
 import pkgutil
 import subprocess
 import sys
@@ -24,7 +25,11 @@ from instantavatar_torch.body import toy_smpl_model
 from instantavatar_torch.data.rays import make_ray_basis
 from instantavatar_torch.deformers import SNARFDeformer
 from instantavatar_torch.models import VoxelTriplaneField
-from instantavatar_torch.train import AvatarModel, AvatarState, RenderSession
+from instantavatar_torch.train import AvatarModel, RenderSession, TrainState
+
+# the xdist workers share the cores: each worker's torch takes its share
+torch.set_num_threads(max(1, (os.cpu_count() or 1) // int(
+    os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
 
 GOLDEN = Path(__file__).parent / "data" / "torch_slice_golden.npz"
 RES, GRID, VR, PR = 32, 32, 16, 32
@@ -87,7 +92,7 @@ def test_render_frame_matches_jax_48px(jax_scene):
     jout = jav.render_frame(jstate, batch, grid=jgrid, image_shape=(48, 48))
 
     av = _port_avatar(VR, PR, RES, GRID, pnp)
-    state = AvatarState(
+    state = TrainState(
         deformer_cano=convert.snarf_canonical_from_numpy(
             jax.tree.map(np.asarray, jstate.deformer_cano), device="cpu"),
         grid=None, center=torch.as_tensor(np.array(jstate.center)),
@@ -188,14 +193,19 @@ def test_golden_frame_96px():
 
 
 def test_unported_paths_raise():
+    """The dense/windows eval and the ngp_loss terms are not ported and
+    say so; an unknown eval grid is refused (the density grid itself
+    renders, tests/test_torch_grid.py)."""
     body = toy_smpl_model(device="cpu")
     field = VoxelTriplaneField(voxel_res=4, plane_res=4, device="cpu")
     snarf = SNARFDeformer(body, resolution=16)
     with pytest.raises(NotImplementedError, match="flat"):
         AvatarModel(body, field, snarf, eval_sampling="dense")
-    av = AvatarModel(body, field, snarf, grid_size=8)
+    with pytest.raises(NotImplementedError, match="ngp_loss"):
+        AvatarModel(body, field, snarf, loss_weights={"w_lpips": 1.0})
+    av = AvatarModel(body, field, snarf, grid_size=8, eval_grid="shell")
     state = av.init(np.zeros(10, np.float32))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="eval_grid"):
         av.render_frame(state, _batch(12), image_shape=(12, 12))
 
 
