@@ -10,6 +10,11 @@ the call raises. There is no silent fallback from one to the other.
 The kernel library is built at first use with ``nvcc`` (sm_90a) from the
 sources in this package into ``instantavatar_torch/_build/``, keyed by a
 hash of the sources and flags, so later processes reuse it.
+
+Launch configuration: a persistent grid of (SMs x resident blocks) blocks
+of 4 warps, each warp walking 32-row tiles with a grid stride; the grid
+is sized once per device in ``csrc/fused_head.cu`` from the occupancy
+API, and ``head_wave_rows`` reports the rows one pass of it covers.
 """
 from __future__ import annotations
 
@@ -26,7 +31,7 @@ from typing import NamedTuple
 import torch
 
 __all__ = ["fused_field_head", "fused_field_head_ref", "build_library",
-           "BuildInfo"]
+           "BuildInfo", "head_cost", "head_wave_rows"]
 
 _PKG = Path(__file__).resolve().parent.parent
 _SOURCES = (_PKG / "csrc" / "fused_head.cu",)
@@ -83,6 +88,11 @@ def build_library() -> BuildInfo:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
         os.replace(tmp, path)
+    return BuildInfo(path, seconds, reused, log, _load(path))
+
+
+def _load(path: Path) -> ctypes.CDLL:
+    """Load a build of ``csrc/fused_head.cu`` and declare its C interface."""
     lib = ctypes.CDLL(str(path))
     lib.fused_field_head_launch.argtypes = \
         [ctypes.c_void_p] * 13 + [ctypes.c_int, ctypes.c_int,
@@ -90,9 +100,32 @@ def build_library() -> BuildInfo:
     lib.fused_field_head_launch.restype = ctypes.c_int
     lib.fused_field_head_supports.argtypes = [ctypes.c_int]
     lib.fused_field_head_supports.restype = ctypes.c_int
+    lib.fused_field_head_wave_rows.argtypes = [ctypes.c_int]
+    lib.fused_field_head_wave_rows.restype = ctypes.c_int
     lib.fused_field_head_error_string.argtypes = [ctypes.c_int]
     lib.fused_field_head_error_string.restype = ctypes.c_char_p
-    return BuildInfo(path, seconds, reused, log, lib)
+    return lib
+
+
+def head_cost(M: int, E: int) -> tuple[int, int]:
+    """(FLOPs, bytes) of the head on M rows of width E: the multiply-adds
+    of the five layers, and each row's bf16 input read once and its fp32
+    colour and sigma written once. The ~20 KB of weights, read once per
+    call, are left out (0.01% of the bytes at 1.5M rows)."""
+    macs = sum((din or E) * dout for din, dout in _SIGMA_DIMS + _COLOR_DIMS)
+    return 2 * macs * M, (2 * E + 4 * 4) * M
+
+
+def head_wave_rows(device, E: int = 56) -> int:
+    """Rows that one pass of the kernel's persistent grid covers on the
+    CUDA ``device`` (blocks x 4 warps x 32 rows)."""
+    info = build_library()
+    with torch.cuda.device(device):
+        n = info.lib.fused_field_head_wave_rows(E)
+    if n <= 0:
+        err = info.lib.fused_field_head_error_string(-n).decode()
+        raise RuntimeError(f"fused_field_head: no launch configuration: {err}")
+    return n
 
 
 def _dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -17,7 +17,8 @@ from instantavatar_tpu.models.ngp import _mlp as jax_mlp
 from instantavatar_tpu.models.voxel_triplane import VoxelTriplaneParams
 from instantavatar_tpu.ops.fused_head import fused_field_head as jax_head
 from instantavatar_torch import convert
-from instantavatar_torch.kernels import fused_field_head, fused_field_head_ref
+from instantavatar_torch.kernels import (fused_field_head,
+                                         fused_field_head_ref, head_cost)
 from instantavatar_torch.models import VoxelTriplaneField, _mlp
 
 E = 56  # flagship encoder width (8 voxel + 3 x 16 plane features)
@@ -115,6 +116,18 @@ def test_fused_head_dispatch_by_device():
     assert torch.equal(c1, c2) and torch.equal(s1, s2)
     with pytest.raises(ValueError, match="unsupported device"):
         fused_field_head(enc_bf.to("meta"), _t(sw), _t(sb), _t(cw), _t(cb))
+
+
+@pytest.mark.parametrize("M", [1, 1000, 1_500_000])
+def test_head_cost_counts_the_head(M):
+    """head_cost: per row, 2 x (56*64 + 64*16 + 15*64 + 64*64 + 64*3) =
+    19,712 FLOPs and 112 bytes of bf16 input + 16 bytes of fp32 colour and
+    sigma, linear in M (the kernel's bound in chip_smoke.py rests on it)."""
+    assert head_cost(1, E) == (19_712, 128)
+    assert head_cost(M, E) == (19_712 * M, 128 * M)
+    sw, _, cw, _ = _head_weights(0)
+    macs = sum(w.shape[0] * w.shape[1] for w in sw + cw)
+    assert head_cost(M, E)[0] == 2 * macs * M
 
 
 def test_field_apply_matches_jax():
