@@ -31,12 +31,23 @@ points a user calls, and checks it in phases:
      (``tests/data/torch_train_golden.npz``) replayed on the card: losses,
      gradients and the updated grid within the CPU tests' tolerances;
  10. the kernel timed at the rows per launch of each path (turntable,
-     training, val render), read from the ``rows`` counter.
+     training, val render and the four paths of phase 11), read from the
+     ``rows`` counter;
+ 11. the entry points: a 264 px capsule sequence directory (20 train + 1
+     val + 2 test frames, toy body) written by the port's writer, then
+     ``instantavatar_torch.cli.train`` in process with the flagship conf
+     (``network=voxel_triplane``, the rest at conf defaults) for 5 epochs,
+     a rerun that must resume and take no step (its validation render is
+     the val path), ``Trainer.test``, ``animate`` on a 6-pose sequence
+     and ``novel_view`` on 8 frames, both at 540 px; the files each
+     writes, finite frames, alpha coverage, val PSNR above an all-white
+     frame's; ms/step, val/test PSNR and SSIM, ms/frame per CLI.
 
 Any failed check exits non-zero. The last stdout line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``
 and the line before it lists the kernels, with the kernel's launches in
-each path (turntable, training, val render). ``--profile DIR`` also
+each path (turntable, training, val render, and phase 11's CLI train run,
+Trainer validation, Trainer test, animate and novel_view). ``--profile DIR`` also
 writes torch.profiler summaries and traces of two steady-state frames and
 of one grid-update step plus three plain training steps to DIR.
 
@@ -77,6 +88,9 @@ TRAIN_SIZE, TRAIN_FRAMES, VAL_FRAMES, TRAIN_STEPS = 264, 30, 2, 150
 TRAIN_LOSS_FALL_MAX = 0.15   # mean mse_loss, last 10 steps / first 10
 VAL_MIN_DB = 32.0
 JAX_CACHED_EPOCH5_DB = 33.72   # artifacts/r5_warp_gate.jsonl (TPU history)
+# phase 11: the sequence the entry points train on, and their runs
+CLI_SIZE, CLI_TRAIN, CLI_VAL, CLI_TEST = 264, 20, 1, 2
+CLI_EPOCHS, CLI_POSES, CLI_TURNTABLE = 5, 6, 8
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 BF16_FLOP_PER_S = 989e12       # dense bf16 tensor-core peak, same source
 
@@ -489,6 +503,134 @@ def replay_train_golden(device) -> dict:
     return worst
 
 
+def _counted(fn):
+    """Run ``fn`` with the head's counters at 0; returns (result,
+    launches, rows) of that run."""
+    from instantavatar_torch.kernels import fused_field_head
+    fused_field_head.launches = 0
+    fused_field_head.rows = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, fused_field_head.launches, fused_field_head.rows
+
+
+def cli_phase(dev, work: Path) -> dict:
+    """Phase 11: the entry points a user runs, in process, on the card
+    (their default device). Returns the measured numbers and, per path,
+    the head's launches and rows."""
+    from instantavatar_torch.cli import animate, novel_view, train
+    from instantavatar_torch.data import make_synthetic_sequence
+    from instantavatar_torch.utils.image_io import read_png
+    n = CLI_TRAIN + CLI_VAL + CLI_TEST
+    t0 = time.perf_counter()
+    seq = make_synthetic_sequence(work / "seq", n_frames=n, H=CLI_SIZE,
+                                  W=CLI_SIZE, style="capsule", device=dev)
+    print(f"[cli] capsule sequence {CLI_SIZE}px, {n} frames written to "
+          f"PNG/npy: {time.perf_counter() - t0:.2f} s")
+    run = work / "run"
+    v0, t0_ = CLI_TRAIN, CLI_TRAIN + CLI_VAL
+    over = [f"dataset.opt.dataroot={seq}", f"run_dir={run}",
+            "network=voxel_triplane",
+            "dataset.opt.train.start=0", f"dataset.opt.train.end={v0 - 1}",
+            "dataset.opt.train.skip=1", "dataset.opt.train.downscale=1",
+            f"dataset.opt.val.start={v0}", f"dataset.opt.val.end={v0}",
+            "dataset.opt.val.skip=1", "dataset.opt.val.downscale=1",
+            f"dataset.opt.test.start={t0_}", f"dataset.opt.test.end={n - 1}",
+            "dataset.opt.test.skip=1", "dataset.opt.test.downscale=1"]
+    args = ["--config-name", "SNARF_NGP", f"train.max_epochs={CLI_EPOCHS}",
+            f"train.check_val_every_n_epoch={CLI_EPOCHS}", *over]
+    paths, res = {}, {}
+
+    t0 = time.perf_counter()
+    (trainer, state), *paths["cli_train"] = _counted(lambda: train.main(args))
+    res["train_cli_s"] = time.perf_counter() - t0
+    steps = CLI_EPOCHS * CLI_TRAIN
+    check(state.step == steps and trainer.steps_run == steps,
+          f"the train CLI took {trainer.steps_run} steps, not {steps}")
+    res["ms_per_step"] = 1e3 * sum(trainer.epoch_seconds) / steps
+    res["batch_ms"] = 1e3 * trainer.batch_seconds / steps
+    print(f"[cli] train: {steps} steps, {res['ms_per_step']:.2f} ms/step "
+          f"(batches from PNG included, their assembly "
+          f"{res['batch_ms']:.2f} ms/step of host time; the first epoch "
+          f"decodes the frames: "
+          f"{[round(1e3 * s / CLI_TRAIN, 1) for s in trainer.epoch_seconds]} "
+          f"ms/step by epoch); the whole CLI {res['train_cli_s']:.1f} s")
+
+    t0 = time.perf_counter()
+    (trainer, state), *paths["cli_val_render"] = _counted(
+        lambda: train.main(args))
+    res["rerun_s"] = time.perf_counter() - t0
+    check(trainer.steps_run == 0 and state.step == steps,
+          "the rerun of the train CLI did not resume as a no-op")
+    val_psnr = [json.loads(line)["value"] for line in
+                (run / "tensorboard" / "scalars.jsonl").read_text()
+                .splitlines() if '"val/psnr"' in line][-1]
+    gt = torch.as_tensor(trainer.dm.valset[0]["rgb"])
+    white_db = psnr(torch.ones_like(gt), gt)
+    res["val_psnr"], res["white_psnr"] = val_psnr, white_db
+    val_m = trainer.test(state, split="val")
+    res["val_ssim"] = val_m["ssim"]
+    print(f"[cli] rerun ({res['rerun_s']:.2f} s: build, restore, the final "
+          f"validation) resumed with no step; its validation render: val "
+          f"PSNR {val_psnr:.2f} dB (an all-white frame: {white_db:.2f} dB), "
+          f"SSIM {val_m['ssim']:.4f}")
+    check(val_psnr > white_db, "val PSNR does not beat an all-white frame")
+
+    test_m, *paths["cli_test_render"] = _counted(lambda: trainer.test(state))
+    res["test_psnr"], res["test_ssim"] = test_m["psnr"], test_m["ssim"]
+    text = (run / "results.txt").read_text()
+    check("psnr: " in text and "ssim: " in text and "lpips: SKIPPED" in text,
+          "results.txt lacks its metrics")
+    print(f"[cli] Trainer.test: PSNR {test_m['psnr']:.2f} dB, SSIM "
+          f"{test_m['ssim']:.4f} over {CLI_TEST} frames")
+
+    g = np.random.default_rng(0)
+    poses = np.zeros((CLI_POSES, 72), np.float32)
+    poses[:, 1] = np.linspace(-0.6, 0.6, CLI_POSES)     # yaw
+    poses[:, 3 + 47] = 0.6 * np.sin(np.arange(CLI_POSES))
+    poses[:, 3 + 50] = -0.6 * np.sin(np.arange(CLI_POSES))
+    poses[:, 3:] += 0.05 * g.standard_normal((CLI_POSES, 69))
+    trans = np.tile(np.array([[0.0, 0.0, 3.0]], np.float32), (CLI_POSES, 1))
+    np.savez(work / "poses.npz", poses=poses, trans=trans)
+    rd = "+render_downscale=2"
+    anim, *paths["cli_animate"] = _counted(lambda: animate.main(
+        ["--config-name", "SNARF_NGP", f"+pose_sequence={work / 'poses.npz'}",
+         rd, *over]))
+    nv, *paths["cli_novel_view"] = _counted(lambda: novel_view.main(
+        ["--config-name", "SNARF_NGP", rd, f"+n_frames={CLI_TURNTABLE}",
+         *over]))
+    for tag, out, frames in (("animation", anim, CLI_POSES),
+                             ("novel_view", nv, CLI_TURNTABLE)):
+        res[f"{tag}_ms_per_frame"] = 1e3 * out["render_s"] / out["frames"]
+        res[f"{tag}_png_ms_per_frame"] = 1e3 * out["png_s"] / out["frames"]
+        res[f"{tag}_gif_s"] = out["gif_s"]
+        check(out["frames"] == frames and out["nonfinite_frames"] == 0,
+              f"{tag}: {out['nonfinite_frames']} non-finite frames")
+        check(all(0.02 < c < 0.95 for c in out["alpha_coverage"]),
+              f"{tag}: implausible alpha coverage {out['alpha_coverage']}")
+        png = read_png(run / tag / f"{frames - 1:04d}.png")
+        check(png.shape == (540, 540, 4), f"{tag}: frame shape {png.shape}")
+        print(f"[cli] {tag}: {frames} frames at 540px, "
+              f"{res[f'{tag}_ms_per_frame']:.2f} ms/frame rendered to host "
+              f"memory, PNG write {res[f'{tag}_png_ms_per_frame']:.2f} "
+              f"ms/frame, GIF write {out['gif_s']:.3f} s; alpha coverage "
+              f"{min(out['alpha_coverage']):.3f}-"
+              f"{max(out['alpha_coverage']):.3f}")
+    for f in ("config.yaml", "results.txt", "test/0.png",
+              f"val/epoch_{CLI_EPOCHS - 1:04d}.png",
+              f"val/cano_pose_{CLI_EPOCHS:04d}.png",
+              "animation/animation.gif", "novel_view/novel_view.gif"):
+        check((run / f).is_file(), f"the CLIs did not write {f}")
+    check(len(list((run / "checkpoints").glob("step_*"))) >= 1,
+          "no checkpoint written")
+    for path, (launches, rows) in paths.items():
+        check(launches > 0, f"{path} never launched the CUDA head")
+        print(f"[cli] {path}: fused-head launches {launches}, rows per "
+              f"launch {rows / launches:.0f}")
+    res["paths"] = paths
+    return res
+
+
 def main(profile_dir: Path | None) -> int:
     # -- 1. device --------------------------------------------------------
     if not torch.cuda.is_available():
@@ -643,11 +785,18 @@ def main(profile_dir: Path | None) -> int:
     # -- 9. training golden ---------------------------------------------------
     replay_train_golden(dev)
 
+    # -- 11. the entry points ---------------------------------------------------
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as work:
+        cli = cli_phase(dev, Path(work))
+
     # -- 10. the kernel at each path's rows per launch ------------------------
     by_path = {"turntable": launches, "train": train["train_launches"],
-               "val_render": train["val_launches"]}
+               "val_render": train["val_launches"],
+               **{k: v[0] for k, v in cli["paths"].items()}}
     rows_by_path = {"turntable": rows, "train": train["train_rows"],
-                    "val_render": train["val_rows"]}
+                    "val_render": train["val_rows"],
+                    **{k: v[1] for k, v in cli["paths"].items()}}
     rows_per_launch = {k: rows_by_path[k] / n for k, n in by_path.items()
                        if n}
     ms_by_path = path_timings(dev, rows_per_launch)

@@ -5,7 +5,9 @@ Works on numpy arrays only (never imports jax): tests pass
 same weights. ``seeded_field_params`` makes such weights from a numpy seed,
 for runs where JAX is not installed (the smoke run on the GPU).
 ``train_state_from_numpy`` carries a whole JAX ``TrainState`` across:
-field params, Adam moments and count, grid, step and the canonical bake.
+field params, Adam moments and count, grid, step and the canonical bake;
+``checkpoint_from_jax_state`` writes one into a run directory as the
+port's checkpoint, so the port's CLIs render an avatar that JAX trained.
 """
 from __future__ import annotations
 
@@ -18,7 +20,7 @@ from .render.density_grid import DensityGridState
 
 __all__ = ["field_params_from_numpy", "seeded_field_params",
            "snarf_canonical_from_numpy", "grid_state_from_numpy",
-           "train_state_from_numpy"]
+           "train_state_from_numpy", "checkpoint_from_jax_state"]
 
 _FEATURES = ("voxel", "plane_xy", "plane_xz", "plane_yz")
 _MLPS = ("sigma_w", "sigma_b", "color_w", "color_b")
@@ -149,3 +151,16 @@ def train_state_from_numpy(state, field, model, *,
         center=torch.as_tensor(np.array(state.center), device=device),
         scale=torch.as_tensor(np.array(state.scale), device=device),
         opt_state=opt, step=int(state.step))
+
+
+def checkpoint_from_jax_state(state, field, model, path):
+    """A numpy copy of a JAX ``TrainState`` -> a checkpoint of the port
+    under the run directory ``path`` (``path/checkpoints/step_%08d``), on
+    ``field``'s device, through ``train_state_from_numpy`` and
+    ``save_checkpoint``. Returns the checkpoint directory."""
+    from pathlib import Path
+
+    from .train.harness import save_checkpoint
+    tstate = train_state_from_numpy(state, field, model,
+                                    device=field.voxel.device)
+    return save_checkpoint(Path(path) / "checkpoints", tstate, field)

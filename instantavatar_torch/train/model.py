@@ -19,7 +19,8 @@ on the card.
 
 Inference (``build_pose_grid``, ``build_test_grid``, the flat branch of
 ``_render_frame_fused``, ``RenderSession``, ``render_frame``,
-``render_frames``) renders a frame in five stages:
+``render_frames``) renders a frame, from a batch as the datasets and the
+CLIs build it, in five stages:
 
   1. frame bake (``deformer.prepare``) and the world->SMPL ray transform;
   4. packed warp-cache bake on the occupied grid cells (Broyden on cell
@@ -109,14 +110,18 @@ class FlatStream(NamedTuple):
 
 
 class RenderSession:
-    """Cross-frame bake memo: the warp cache and sigma table depend only on
-    (field params, betas, body pose, grid); global orientation and
-    translation cancel in the world->SMPL transform, so a turntable bakes
-    once per pose. Pass one session through a frame sequence."""
+    """Cross-frame memos: the warp cache and sigma table depend only on
+    (field params, betas, body pose, grid), and the frame's own test grid
+    (``render_frame(grid=None)``) only on (field params, betas, body pose,
+    eval grid kind); global orientation and translation cancel in the
+    world->SMPL transform, so a turntable builds one grid and bakes once
+    per pose. Pass one session through a frame sequence."""
 
     def __init__(self) -> None:
         # (key, (cache, sig_table, n_occ), objects the key identifies)
         self.last_bake: tuple | None = None
+        # (key, DensityGridState, objects the key identifies)
+        self.last_grid: tuple | None = None
 
 
 def _as_tensor(v, device) -> torch.Tensor:
@@ -493,7 +498,9 @@ class AvatarModel:
             if H % p == 0 and W % p == 0:
                 return p
         raise ValueError(f"image {H}x{W} is not divisible into "
-                         f"{self.prepass_block or '3 or 2'}-pixel blocks")
+                         f"{self.prepass_block or '3 or 2'}-pixel blocks; "
+                         f"the render for other sizes is not ported yet "
+                         f"(ROADMAP.md open item 3: the no-prepass render)")
 
     @torch.no_grad()
     def render_stream(self, state: TrainState, batch, grid: DensityGridState,
@@ -636,33 +643,58 @@ class AvatarModel:
                 "alpha": A[:, 4], "counter": cnt,
                 "n_samples": int(stream.z.shape[0]), "n_occ": stream.n_occ}
 
+    def _frame_grid(self, state: TrainState, batch,
+                    session: RenderSession | None) -> DensityGridState:
+        """The frame's own grid (``render_frame(grid=None)``):
+        ``build_test_grid`` (``eval_grid="density"``) or
+        ``build_pose_grid`` (``"smpl_shell"``), reused from the session
+        when field params, betas, body pose and the grid kind match."""
+        if self.eval_grid not in ("density", "smpl_shell"):
+            raise ValueError(f"unknown eval_grid {self.eval_grid!r}")
+        key = (self._frame_key(state, batch, None), self.eval_grid)
+        if session is not None and session.last_grid is not None \
+                and session.last_grid[0] == key:
+            return session.last_grid[1]
+        grid = (self.build_test_grid(state, batch)
+                if self.eval_grid == "density"
+                else self.build_pose_grid(state, batch))
+        if session is not None:
+            session.last_grid = (key, grid, (self.field, state))
+        return grid
+
     def render_frame(self, state: TrainState, batch,
                      grid: DensityGridState | None = None,
                      image_shape: tuple[int, int] | None = None,
-                     session: RenderSession | None = None) -> dict:
-        """Full-frame inference from a basis-only batch. ``grid`` None
-        builds the frame's grid: ``build_test_grid`` (``eval_grid=
-        "density"``) or ``build_pose_grid`` (``"smpl_shell"``). Returns
-        device tensors rgb (n, 3), depth, alpha, counter (n,) plus the
-        frame's kept-sample and occupied-cell counts."""
+                     session: RenderSession | None = None, *,
+                     chunk: int | None = None,
+                     payload: str | None = None) -> dict:
+        """Full-frame inference from a batch that carries ``ray_basis``
+        (the datasets' full-image batches and the CLIs' camera batches);
+        its per-pixel ``rays_o``/``rays_d``/``near``/``far``, if any, are
+        not read. ``grid`` None builds the frame's grid (see
+        ``_frame_grid``). ``chunk`` and ``payload`` size the JAX render's
+        buffers and are accepted for its signature only. Returns device
+        tensors rgb (n, 3), depth, alpha, counter (n,) plus the frame's
+        kept-sample and occupied-cell counts."""
         if image_shape is None:
             raise ValueError("the flat render needs image_shape")
+        if "ray_basis" not in batch:
+            raise ValueError("the flat render needs the batch's ray_basis "
+                             "(a pinhole camera)")
         if grid is None:
-            if self.eval_grid not in ("density", "smpl_shell"):
-                raise ValueError(f"unknown eval_grid {self.eval_grid!r}")
-            grid = (self.build_test_grid(state, batch)
-                    if self.eval_grid == "density"
-                    else self.build_pose_grid(state, batch))
+            grid = self._frame_grid(state, batch, session)
         stream = self.render_stream(state, batch, grid, image_shape, session)
         return self.composite_frame(stream, batch.get("bg_color"))
 
     def render_frames(self, state: TrainState, batches,
                       grid: DensityGridState | None = None,
                       image_shape: tuple[int, int] | None = None,
-                      session: RenderSession | None = None):
+                      session: RenderSession | None = None, *,
+                      chunk: int | None = None,
+                      payload: str | None = None):
         """Frame-sequence renderer: one ``RenderSession`` spans the
         sequence (created here if not passed), so frames of one pose share
-        a bake. Yields ``render_frame`` dicts."""
+        a grid and a bake. Yields ``render_frame`` dicts."""
         session = session or RenderSession()
         for batch in batches:
             yield self.render_frame(state, batch, grid=grid,

@@ -210,14 +210,20 @@ def test_unported_paths_raise():
 
 
 def test_import_loads_no_jax():
-    """Every module of the port imports without loading jax."""
+    """Every module of the port (the entry points included) imports
+    without loading jax or the JAX package."""
     mods = [m.name for m in pkgutil.walk_packages(
         instantavatar_torch.__path__, "instantavatar_torch.")]
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "assert 'jax' not in sys.modules, 'jax was imported'\n"
+            "assert not [m for m in sys.modules\n"
+            "            if m.startswith('instantavatar_tpu')]\n"
             "print(len(sys.modules))")
     root = Path(__file__).resolve().parents[1]
     subprocess.run([sys.executable, "-c", code], check=True, cwd=root,
                    timeout=120)
     assert len(mods) >= 15
+    assert {'instantavatar_torch.cli.train', 'instantavatar_torch.cli.animate',
+            'instantavatar_torch.cli.novel_view',
+            'instantavatar_torch.train.harness'} <= set(mods)
