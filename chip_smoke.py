@@ -41,13 +41,28 @@ points a user calls, and checks it in phases:
      the val path), ``Trainer.test``, ``animate`` on a 6-pose sequence
      and ``novel_view`` on 8 frames, both at 540 px; the files each
      writes, finite frames, alpha coverage, val PSNR above an all-white
-     frame's; ms/step, val/test PSNR and SSIM, ms/frame per CLI.
+     frame's; ms/step, val/test PSNR and SSIM, ms/frame per CLI;
+ 12. the confs' default network (``NGPField``, 16 x 2 @ 2^19 hash grid,
+     fp32 head) through the entry points on phase 11's sequence with no
+     network override: ``train`` for 5 epochs (ms/step, batch ms, peak
+     memory, val PSNR above an all-white frame's), ``eval`` with
+     ``SNARF_NGP_refine`` (20 epochs over the 2 test frames; the field
+     bit-identical to the train checkpoint, the SMPL parameters moved;
+     test PSNR/SSIM from ``results.txt``), ``fit`` with
+     ``SNARF_NGP_fitting`` (``w_lpips=0``, 2 epochs) on a copy of the
+     sequence (every frame exported to ``poses/train.npz``, finite losses,
+     the depth term logged), ``animate`` at 540 px; then ``hash_encode``
+     (plain PyTorch, not a TPU kernel) timed forward and forward plus
+     backward on the largest call of a training step and of an animate
+     frame, with its device launches per call and its byte bound, and the
+     committed JAX NGP golden frame (48 px), PSNR-bounded.
 
 Any failed check exits non-zero. The last stdout line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``
 and the line before it lists the kernels, with the kernel's launches in
 each path (turntable, training, val render, and phase 11's CLI train run,
-Trainer validation, Trainer test, animate and novel_view). ``--profile DIR`` also
+Trainer validation, Trainer test, animate and novel_view; phase 12's NGP
+paths evaluate the fp32 head and launch no kernel). ``--profile DIR`` also
 writes torch.profiler summaries and traces of two steady-state frames and
 of one grid-update step plus three plain training steps to DIR.
 
@@ -91,6 +106,9 @@ JAX_CACHED_EPOCH5_DB = 33.72   # artifacts/r5_warp_gate.jsonl (TPU history)
 # phase 11: the sequence the entry points train on, and their runs
 CLI_SIZE, CLI_TRAIN, CLI_VAL, CLI_TEST = 264, 20, 1, 2
 CLI_EPOCHS, CLI_POSES, CLI_TURNTABLE = 5, 6, 8
+# phase 12: the NGP golden's floor, fit's epochs, the default table's bytes
+NGP_GOLDEN_MIN_DB, FIT_EPOCHS = 35.0, 2
+NGP_TABLE_BYTES = 16 * 2 ** 19 * 2 * 4
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 BF16_FLOP_PER_S = 989e12       # dense bf16 tensor-core peak, same source
 
@@ -514,6 +532,21 @@ def _counted(fn):
     return out, fused_field_head.launches, fused_field_head.rows
 
 
+def cli_overrides(seq: Path, run: Path) -> list[str]:
+    """The entry points' overrides for phase 11's sequence: its frame
+    ranges (CLI_TRAIN train, CLI_VAL val, CLI_TEST test frames at full
+    size) and the run directory; every other key at its conf default."""
+    v0, t0 = CLI_TRAIN, CLI_TRAIN + CLI_VAL
+    n = t0 + CLI_TEST
+    return [f"dataset.opt.dataroot={seq}", f"run_dir={run}",
+            "dataset.opt.train.start=0", f"dataset.opt.train.end={v0 - 1}",
+            "dataset.opt.train.skip=1", "dataset.opt.train.downscale=1",
+            f"dataset.opt.val.start={v0}", f"dataset.opt.val.end={v0}",
+            "dataset.opt.val.skip=1", "dataset.opt.val.downscale=1",
+            f"dataset.opt.test.start={t0}", f"dataset.opt.test.end={n - 1}",
+            "dataset.opt.test.skip=1", "dataset.opt.test.downscale=1"]
+
+
 def cli_phase(dev, work: Path) -> dict:
     """Phase 11: the entry points a user runs, in process, on the card
     (their default device). Returns the measured numbers and, per path,
@@ -528,15 +561,7 @@ def cli_phase(dev, work: Path) -> dict:
     print(f"[cli] capsule sequence {CLI_SIZE}px, {n} frames written to "
           f"PNG/npy: {time.perf_counter() - t0:.2f} s")
     run = work / "run"
-    v0, t0_ = CLI_TRAIN, CLI_TRAIN + CLI_VAL
-    over = [f"dataset.opt.dataroot={seq}", f"run_dir={run}",
-            "network=voxel_triplane",
-            "dataset.opt.train.start=0", f"dataset.opt.train.end={v0 - 1}",
-            "dataset.opt.train.skip=1", "dataset.opt.train.downscale=1",
-            f"dataset.opt.val.start={v0}", f"dataset.opt.val.end={v0}",
-            "dataset.opt.val.skip=1", "dataset.opt.val.downscale=1",
-            f"dataset.opt.test.start={t0_}", f"dataset.opt.test.end={n - 1}",
-            "dataset.opt.test.skip=1", "dataset.opt.test.downscale=1"]
+    over = cli_overrides(seq, run) + ["network=voxel_triplane"]
     args = ["--config-name", "SNARF_NGP", f"train.max_epochs={CLI_EPOCHS}",
             f"train.check_val_every_n_epoch={CLI_EPOCHS}", *over]
     paths, res = {}, {}
@@ -628,6 +653,283 @@ def cli_phase(dev, work: Path) -> dict:
         print(f"[cli] {path}: fused-head launches {launches}, rows per "
               f"launch {rows / launches:.0f}")
     res["paths"] = paths
+    return res
+
+
+def _count_encode(steps_only: bool = False):
+    """Record (rows, with autograd) of every ``hash_encode`` call the NGP
+    field makes (with ``steps_only``, inside ``AvatarModel.step`` only,
+    so a training run's validation renders are left out) until the
+    returned ``stop`` is called, and keep the points of the largest call;
+    wrappers around the attributes the field and the trainer read (no
+    device sync)."""
+    import instantavatar_torch.models.ngp as ngp_mod
+    from instantavatar_torch.train import AvatarModel
+    real, real_step = ngp_mod.hash_encode, AvatarModel.step
+    calls: list[tuple[int, bool]] = []
+    largest: dict = {"x": None}
+    inside = [not steps_only]
+
+    def counted(table, x, cfg, resolutions=None, **kw):
+        if inside[0]:
+            calls.append((x.numel() // 3, torch.is_grad_enabled()
+                          and (table.requires_grad or x.requires_grad)))
+            if largest["x"] is None or x.numel() > largest["x"].numel():
+                largest["x"] = x.detach().reshape(-1, 3).clone()
+        return real(table, x, cfg, resolutions, **kw)
+
+    def step(self, *a, **kw):
+        inside[0] = True
+        out = real_step(self, *a, **kw)
+        inside[0] = not steps_only
+        return out
+
+    def stop():
+        ngp_mod.hash_encode, AvatarModel.step = real, real_step
+    ngp_mod.hash_encode, AvatarModel.step = counted, step
+    return calls, largest, stop
+
+
+def encode_bound(rows: int, touched: int, backward: bool) -> float:
+    """Least time (ms) of ``hash_encode`` on ``rows`` points that touch
+    ``touched`` distinct table rows, at the HBM rate (the FLOPs, ~1 KFLOP
+    per point, take <1% of that at the fp32 rate): 12 B of points in and
+    128 B of fp32 features out per point plus 8 B per touched table row;
+    with the backward also the 128 B per point of incoming gradient, the
+    12 B per point of point gradient and the dense 64 MiB table gradient
+    written once."""
+    nbytes = rows * (12 + 128) + touched * 8
+    if backward:
+        nbytes += rows * (128 + 12) + NGP_TABLE_BYTES
+    return 1e3 * nbytes / HBM_BYTES_PER_S
+
+
+def encode_timing(dev, path_points: dict[str, torch.Tensor]) -> dict:
+    """The hash encode on each path's largest call (its normalized
+    points, as the field encoded them; random table): forward, and
+    forward plus backward, median of 15 (CUDA events), its device
+    launches per call (torch.profiler) and its bound."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+    from instantavatar_torch.ops import HashGridConfig, hash_encode, hash_slots
+    cfg = HashGridConfig()
+    g = np.random.default_rng(3)
+    table = torch.as_tensor(g.normal(0.0, 0.1, (cfg.n_levels, cfg.table_size,
+                                                cfg.n_features))
+                            .astype(np.float32), device=dev)
+    out = {}
+    for path, x in path_points.items():
+        rows = x.shape[0]
+        touched = int(torch.unique(
+            (hash_slots(x, cfg) + torch.arange(cfg.n_levels, device=dev)
+             [:, None] * cfg.table_size).reshape(-1)).numel())
+        tab = table.clone().requires_grad_()
+        ct = torch.ones((rows, cfg.out_dim), device=dev)
+
+        def fwd():
+            with torch.no_grad():
+                hash_encode(table, x, cfg)
+
+        def fwd_bwd():
+            tab.grad = None
+            hash_encode(tab, x, cfg).backward(ct)
+        res = {"rows": rows, "touched_rows": touched}
+        for name, fn, bwd in (("fwd", fwd, False), ("fwd_bwd", fwd_bwd, True)):
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+            with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            launches = sum(1 for e in prof.events()
+                           if e.device_type == torch.autograd.DeviceType.CUDA)
+            ms = statistics.median(cuda_ms(fn, 15))
+            bound = encode_bound(rows, touched, bwd)
+            res.update({f"{name}_ms": ms, f"{name}_launches": launches,
+                        f"{name}_bound_ms": bound})
+            print(f"[encode] {path}: {rows} points ({touched} distinct table "
+                  f"rows), {name}: {ms:.4f} ms (median of 15, CUDA events), "
+                  f"{launches} device launches per call (torch.profiler), "
+                  f"bound {bound:.4f} ms set by bytes, "
+                  f"{100 * bound / ms:.1f}% of it")
+        out[path] = res
+    return out
+
+
+def ngp_phase(dev, work: Path) -> dict:
+    """Phase 12: the confs' default network (NGPField, the default hash
+    grid) through the entry points on phase 11's sequence, with no
+    network override: train, refine (eval), fit on a copy, animate; then
+    the hash encode timed at the rows of the training step and of an
+    animate frame, and the committed JAX NGP golden frame."""
+    import shutil
+    from instantavatar_torch.cli import animate, fit, train
+    from instantavatar_torch.cli import eval as eval_cli
+    sys.path.insert(0, str(ROOT / "tools"))
+    import make_torch_ngp_golden as ngp_golden   # numpy + the port only
+    seq = work / "seq"
+    run = work / "ngp_run"
+    over = cli_overrides(seq, run)
+    res = {}
+
+    # -- train ----------------------------------------------------------------
+    calls, train_x, stop = _count_encode(steps_only=True)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer, state = train.main(["--config-name", "SNARF_NGP",
+                                 f"train.max_epochs={CLI_EPOCHS}",
+                                 f"train.check_val_every_n_epoch={CLI_EPOCHS}",
+                                 *over])
+    torch.cuda.synchronize()
+    stop()
+    res["train_cli_s"] = time.perf_counter() - t0
+    steps = CLI_EPOCHS * CLI_TRAIN
+    check(type(trainer.avatar.field).__name__ == "NGPField",
+          "the default network is not NGPField")
+    check(state.step == steps and trainer.steps_run == steps,
+          f"the NGP train CLI took {trainer.steps_run} steps, not {steps}")
+    res["ms_per_step"] = 1e3 * sum(trainer.epoch_seconds) / steps
+    res["batch_ms"] = 1e3 * trainer.batch_seconds / steps
+    res["peak_mib"] = torch.cuda.max_memory_allocated() / 2 ** 20
+    val_psnr = [json.loads(line)["value"] for line in
+                (run / "tensorboard" / "scalars.jsonl").read_text()
+                .splitlines() if '"val/psnr"' in line][-1]
+    gt = torch.as_tensor(trainer.dm.valset[0]["rgb"])
+    white_db = psnr(torch.ones_like(gt), gt)
+    res["val_psnr"], res["white_psnr"] = val_psnr, white_db
+    grad_rows = [r for r, gr in calls if gr]
+    res["train_encode"] = {"calls": len(calls), "grad_calls": len(grad_rows),
+                           "rows": sum(r for r, _ in calls),
+                           "grad_rows": sum(grad_rows),
+                           "max_rows": max(r for r, _ in calls)}
+    print(f"[ngp] train (SNARF_NGP, no network override): {steps} steps, "
+          f"{res['ms_per_step']:.2f} ms/step (batches from PNG included, "
+          f"their assembly {res['batch_ms']:.2f} ms/step); by epoch "
+          f"{[round(1e3 * s / CLI_TRAIN, 1) for s in trainer.epoch_seconds]} "
+          f"ms/step; peak memory {res['peak_mib']:.1f} MiB; the whole CLI "
+          f"{res['train_cli_s']:.1f} s; val PSNR {val_psnr:.2f} dB (an "
+          f"all-white frame: {white_db:.2f} dB)")
+    print(f"[ngp] hash_encode in the train CLI run's {steps} steps: "
+          f"{len(calls)} calls, {len(grad_rows)} with autograd, "
+          f"{res['train_encode']['rows']} points "
+          f"({res['train_encode']['grad_rows']} with autograd), the largest "
+          f"call {res['train_encode']['max_rows']} points")
+    check(val_psnr > white_db, "NGP val PSNR does not beat an all-white frame")
+    ck = sorted((run / "checkpoints").glob("step_*"))[-1]
+    field0 = torch.load(ck / "state.pt", weights_only=True,
+                        map_location=dev)["field"]
+
+    # -- refine -----------------------------------------------------------
+    t0 = time.perf_counter()
+    rtrainer, rstate, test_m = eval_cli.main(["--config-name",
+                                              "SNARF_NGP_refine", *over])
+    torch.cuda.synchronize()
+    res["refine_cli_s"] = time.perf_counter() - t0
+    rsteps = rtrainer.max_epochs * CLI_TEST
+    check(rstate.step == rsteps and rtrainer.steps_run == rsteps,
+          f"refine took {rtrainer.steps_run} steps, not {rsteps}")
+    res["refine_ms_per_step"] = 1e3 * sum(rtrainer.epoch_seconds) / rsteps
+    same = all(torch.equal(v, field0[k])
+               for k, v in rtrainer.avatar.field.state_dict().items())
+    sp = rtrainer.dm.trainset.get_smpl_params()
+    moved = {k: float(np.abs(getattr(rstate.smpl, k).detach().cpu().numpy()
+                             - sp[k]).max())
+             for k in ("global_orient", "body_pose", "transl")}
+    text = (run / "results.txt").read_text()
+    res["test_psnr"], res["test_ssim"] = test_m["psnr"], test_m["ssim"]
+    print(f"[ngp] refine (eval, SNARF_NGP_refine): {rsteps} steps over "
+          f"{CLI_TEST} test frames, {res['refine_ms_per_step']:.2f} ms/step, "
+          f"the whole CLI {res['refine_cli_s']:.1f} s; field bit-identical "
+          f"to the train checkpoint: {same}; SMPL moved (max |change|) "
+          f"{moved}; results.txt: test PSNR {test_m['psnr']:.2f} dB, SSIM "
+          f"{test_m['ssim']:.4f}")
+    check(same, "refinement changed the field")
+    check(moved["body_pose"] > 0 and moved["transl"] > 0,
+          "refinement did not move the SMPL parameters")
+    check("psnr: " in text and "ssim: " in text
+          and (run / "test" / "0.png").is_file(),
+          "eval did not write results.txt and test/*.png")
+
+    # -- fit on a copy of the sequence ---------------------------------------
+    seq_fit = work / "seq_fit"
+    shutil.copytree(seq, seq_fit)
+    t0 = time.perf_counter()
+    ftrainer, fstate, poses = fit.main(
+        ["--config-name", "SNARF_NGP_fitting", "model.opt.loss.opt.w_lpips=0",
+         f"train.max_epochs={FIT_EPOCHS}",
+         *cli_overrides(seq_fit, work / "fit_run")])
+    torch.cuda.synchronize()
+    res["fit_cli_s"] = time.perf_counter() - t0
+    fsteps = FIT_EPOCHS * CLI_TRAIN
+    res["fit_ms_per_step"] = 1e3 * sum(ftrainer.epoch_seconds) / fsteps
+    exported = np.load(poses)
+    losses = {k: float(v) for k, v in ftrainer.last_losses.items()}
+    print(f"[ngp] fit (SNARF_NGP_fitting, w_lpips=0): {fsteps} steps, "
+          f"{res['fit_ms_per_step']:.2f} ms/step, the whole CLI "
+          f"{res['fit_cli_s']:.1f} s; exported "
+          f"{exported['body_pose'].shape[0]} frames to poses/train.npz; "
+          f"last step: loss {losses['loss']:.5f}, "
+          f"loss_depth_reg {losses.get('loss_depth_reg', float('nan')):.3e}, "
+          f"drift_transl {losses['drift_transl']:.3e}")
+    check(exported["body_pose"].shape == (CLI_TRAIN, 69)
+          and exported["transl"].shape == (CLI_TRAIN, 3),
+          "fit did not export every frame")
+    check(all(math.isfinite(v) for v in losses.values()),
+          "fit's losses are not finite")
+    check("loss_depth_reg" in losses, "fit did not log loss_depth_reg")
+
+    # -- animate ----------------------------------------------------------
+    calls, anim_x, stop = _count_encode()
+    anim = animate.main(["--config-name", "SNARF_NGP",
+                         f"+pose_sequence={work / 'poses.npz'}",
+                         "+render_downscale=2", *over])
+    stop()
+    res["animate_ms_per_frame"] = 1e3 * anim["render_s"] / anim["frames"]
+    res["animate_png_ms_per_frame"] = 1e3 * anim["png_s"] / anim["frames"]
+    res["animate_encode_rows"] = sum(r for r, _ in calls) / anim["frames"]
+    res["animate_encode_max_rows"] = max(r for r, _ in calls)
+    print(f"[ngp] animate: {anim['frames']} frames at 540px, "
+          f"{res['animate_ms_per_frame']:.2f} ms/frame to host memory, PNG "
+          f"write {res['animate_png_ms_per_frame']:.2f} ms/frame; alpha "
+          f"coverage {min(anim['alpha_coverage']):.3f}-"
+          f"{max(anim['alpha_coverage']):.3f}; hash_encode "
+          f"{len(calls) / anim['frames']:.1f} calls and "
+          f"{res['animate_encode_rows']:.0f} points per frame, the largest "
+          f"call {res['animate_encode_max_rows']} points")
+    check(anim["frames"] == CLI_POSES and anim["nonfinite_frames"] == 0,
+          "NGP animate: non-finite or missing frames")
+    check(all(0.02 < c < 0.95 for c in anim["alpha_coverage"]),
+          f"NGP animate: implausible alpha coverage {anim['alpha_coverage']}")
+
+    # -- the encode, timed at the paths' rows -----------------------------
+    enc = encode_timing(dev, {"train_step_call": train_x["x"],
+                              "animate_frame_call": anim_x["x"]})
+    t = enc["train_step_call"]
+    per_row_fwd = t["fwd_ms"] / t["rows"]
+    per_row_fb = t["fwd_bwd_ms"] / t["rows"]
+    te = res["train_encode"]
+    step_enc = (per_row_fb * te["grad_rows"]
+                + per_row_fwd * (te["rows"] - te["grad_rows"])) / steps
+    a = enc["animate_frame_call"]
+    frame_enc = a["fwd_ms"] / a["rows"] * res["animate_encode_rows"]
+    res["encode"] = enc
+    res["encode_ms_per_step"] = step_enc
+    res["encode_ms_per_frame"] = frame_enc
+    print(f"[encode] estimated share: {step_enc:.2f} ms of the "
+          f"{res['ms_per_step']:.2f} ms train step "
+          f"({100 * step_enc / res['ms_per_step']:.1f}%: the steps' encode "
+          f"points at the per-point times of the largest call), "
+          f"{frame_enc:.2f} ms of the "
+          f"{res['animate_ms_per_frame']:.2f} ms animate frame "
+          f"({100 * frame_enc / res['animate_ms_per_frame']:.1f}%)")
+
+    # -- the NGP golden ---------------------------------------------------
+    gold = ngp_golden.render_golden(dev)
+    res["golden_db"] = gold["psnr"]
+    print(f"[ngp golden] {gold['image_hw']}px NGP frame, port on "
+          f"{torch.cuda.get_device_name(0)} vs JAX on CPU: rgb PSNR "
+          f"{gold['psnr']:.1f} dB (bound {NGP_GOLDEN_MIN_DB}), max|alpha "
+          f"diff| {np.abs(gold['alpha'] - gold['golden_alpha']).max():.3e}")
+    check(gold["psnr"] >= NGP_GOLDEN_MIN_DB, "the NGP golden frame disagrees")
     return res
 
 
@@ -789,6 +1091,8 @@ def main(profile_dir: Path | None) -> int:
     import tempfile
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as work:
         cli = cli_phase(dev, Path(work))
+        # -- 12. the confs' default network -------------------------------
+        ngp_phase(dev, Path(work))
 
     # -- 10. the kernel at each path's rows per launch ------------------------
     by_path = {"turntable": launches, "train": train["train_launches"],

@@ -1,4 +1,4 @@
 """The port's entry points: ``python -m instantavatar_torch.cli.train``,
-``.animate`` and ``.novel_view``, with the same ``--config-name`` and
-``key=value`` surface as the repository's ``cli/*.py``, plus
-``+device=cuda|cpu``."""
+``.eval``, ``.fit``, ``.animate`` and ``.novel_view``, with the same
+``--config-name`` and ``key=value`` surface as the repository's
+``cli/*.py``, plus ``+device=cuda|cpu``."""

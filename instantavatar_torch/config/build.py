@@ -15,27 +15,28 @@ from typing import Any
 
 import torch
 
+from ..losses.nerf_loss import refuse_lpips
+
 __all__ = ["check_ported", "build_body_model", "build_field",
            "build_deformer", "build_avatar", "build_datamodule",
            "build_trainer"]
 
 # where each unported option waits (ROADMAP.md, "Open items")
-SMPL_SLICE = "ROADMAP.md open item 1: the SMPL-optimization slice"
-NGP_SLICE = "ROADMAP.md open item 2: NGPField + hash_encode"
-LPIPS_SLICE = "ROADMAP.md open item 4: ngp_loss/LPIPS"
 OFF_PATH_SLICE = ("ROADMAP.md open item 7: SMPLDeformer, smpl_init and the "
                   "triplane/mlp fields")
 
 
 def _field_kind(network_cfg: Any) -> str:
     """The field class a network conf names. JAX's ``build_field`` reads
-    the same tests but misses ``VanillaNeRF`` (``confs/network/mlp.yaml``),
-    which it builds as an NGPField; here it is the mlp field."""
+    the same tests but misses ``VanillaNeRF`` (``confs/network/mlp.yaml``)
+    and, its ``"triplane" in target`` being case-sensitive,
+    ``TriPlaneField`` (``confs/network/triplane.yaml``): it builds both as
+    an NGPField. Here they are the mlp and triplane fields."""
     target = str(network_cfg.get("_target_", ""))
     name = target.rsplit(".", 1)[-1].lower()
     if "voxeltriplane" in name or "voxel_triplane" in target:
         return "voxel_triplane"
-    if "triplane" in target:
+    if "triplane" in name:
         return "triplane"
     if "mlp" in target or "nerfnet" in name or name == "vanillanerf":
         return "mlp"
@@ -52,32 +53,20 @@ def check_ported(cfg: Any) -> None:
     """Raise ``NotImplementedError`` for every option of a composed config
     that the port does not run yet."""
     kind = _field_kind(cfg.get("network", {}) or {})
-    if kind == "ngp":
-        raise NotImplementedError(
-            f"network=ngp (NGPField) is not ported yet ({NGP_SLICE}); use "
-            f"network=voxel_triplane")
-    if kind != "voxel_triplane":
+    if kind not in ("ngp", "voxel_triplane"):
         raise NotImplementedError(
             f"network={kind} is not ported yet ({OFF_PATH_SLICE}); use "
-            f"network=voxel_triplane")
+            f"network=ngp or network=voxel_triplane")
     if _is_smpl_deformer(cfg.get("deformer", {}) or {}):
         raise NotImplementedError(
             f"deformer=smpl (SMPLDeformer) is not ported yet "
             f"({OFF_PATH_SLICE})")
     mopt = cfg.model.opt
-    if bool((mopt.get("optimize_SMPL", {}) or {}).get("enable", False)):
-        raise NotImplementedError(
-            f"model.opt.optimize_SMPL.enable (the refine and fitting "
-            f"configs) is not ported yet ({SMPL_SLICE})")
     if bool(mopt.get("smpl_init", False)):
         raise NotImplementedError(
             f"model.opt.smpl_init is not ported yet ({OFF_PATH_SLICE})")
     loss = mopt.get("loss", {}) or {}
-    if str(loss.get("_target_", "nerf_loss")).rsplit(".", 1)[-1] \
-            != "nerf_loss" or float((loss.get("opt", {}) or {})
-                                    .get("w_lpips", 0)) > 0:
-        raise NotImplementedError(
-            f"ngp_loss and w_lpips > 0 are not ported yet ({LPIPS_SLICE})")
+    refuse_lpips(float((loss.get("opt", {}) or {}).get("w_lpips", 0)))
 
 
 def build_body_model(deformer_cfg: Any, device: torch.device | str):
@@ -99,12 +88,16 @@ def build_body_model(deformer_cfg: Any, device: torch.device | str):
 
 
 def build_field(network_cfg: Any, device: torch.device | str):
-    from ..models import VoxelTriplaneField
+    """The field a network conf names. ``ngp`` is ``NGPField()`` at its
+    default grid: like JAX, the conf's use_viewdir, cond_dim, center and
+    scale are not read (the canonical bbox sets center and scale)."""
+    from ..models import NGPField, VoxelTriplaneField
     kind = _field_kind(network_cfg)
+    if kind == "ngp":
+        return NGPField(device=device)
     if kind != "voxel_triplane":
         raise NotImplementedError(
-            f"network={kind} is not ported yet "
-            f"({NGP_SLICE if kind == 'ngp' else OFF_PATH_SLICE})")
+            f"network={kind} is not ported yet ({OFF_PATH_SLICE})")
     opt = network_cfg.get("opt", {}) or {}
     kw = {k: int(opt[k]) for k in ("voxel_res", "voxel_feats", "plane_res",
                                    "plane_feats") if k in opt}
@@ -151,11 +144,16 @@ def build_avatar(cfg: Any, steps_per_epoch: int = 100, *,
     loss_opt = (mopt.get("loss", {}) or {}).get("opt", {}) or {}
     sched = mopt.get("scheduler", {}) or {}
     oopt = mopt.get("optimizer", {}) or {}
+    opt_smpl = mopt.get("optimize_SMPL", {}) or {}
+    optimize_smpl = bool(opt_smpl.get("enable", False))
+    is_refine = bool(opt_smpl.get("is_refine", False))
     optimizer = make_optimizer(
         lr=float(oopt.get("lr", 1e-2)),
+        smpl_lr=float(opt_smpl.get("lr", 1e-4)) if optimize_smpl else None,
         max_epochs=int(sched["max_epochs"]) if "max_epochs" in sched
         else None,
         steps_per_epoch=steps_per_epoch,
+        freeze_field=is_refine,
         betas=tuple(float(b) for b in oopt.get("betas", (0.9, 0.99))),
         eps=float(oopt.get("eps", 1e-15)))
     return AvatarModel(
@@ -163,6 +161,8 @@ def build_avatar(cfg: Any, steps_per_epoch: int = 100, *,
         n_steps=n_steps,
         k_cap=64 if k_cap is None else int(k_cap),
         grid_size=int(ropt.get("grid_size", 64)),
+        optimize_smpl=optimize_smpl,
+        is_refine=is_refine,
         train_warp_cache=bool(ropt.get("train_warp_cache", True)),
         # every configured loss weight goes through: AvatarModel raises on
         # a term it does not have rather than dropping it

@@ -2,10 +2,11 @@
 
 Works on numpy arrays only (never imports jax): tests pass
 ``jax.tree.map(np.asarray, params)`` in, so both packages compute from the
-same weights. ``seeded_field_params`` makes such weights from a numpy seed,
-for runs where JAX is not installed (the smoke run on the GPU).
-``train_state_from_numpy`` carries a whole JAX ``TrainState`` across:
-field params, Adam moments and count, grid, step and the canonical bake;
+same weights. ``seeded_field_params`` and ``seeded_ngp_params`` make such
+weights from a numpy seed, for runs where JAX is not installed (the smoke
+run on the GPU). ``train_state_from_numpy`` carries a whole JAX ``TrainState``
+across: field params (either field), Adam moments and count, grid, step,
+the canonical bake and the per-frame SMPL parameters;
 ``checkpoint_from_jax_state`` writes one into a run directory as the
 port's checkpoint, so the port's CLIs render an avatar that JAX trained.
 """
@@ -19,10 +20,11 @@ from .ops.grid_sample import pack_corners_3d
 from .render.density_grid import DensityGridState
 
 __all__ = ["field_params_from_numpy", "seeded_field_params",
-           "snarf_canonical_from_numpy", "grid_state_from_numpy",
-           "train_state_from_numpy", "checkpoint_from_jax_state"]
+           "seeded_ngp_params", "snarf_canonical_from_numpy",
+           "grid_state_from_numpy", "train_state_from_numpy",
+           "checkpoint_from_jax_state"]
 
-_FEATURES = ("voxel", "plane_xy", "plane_xz", "plane_yz")
+_FEATURES = ("voxel", "plane_xy", "plane_xz", "plane_yz", "table")
 _MLPS = ("sigma_w", "sigma_b", "color_w", "color_b")
 
 
@@ -30,12 +32,17 @@ def _get(obj, name):
     return obj[name] if isinstance(obj, dict) else getattr(obj, name)
 
 
+def _has(obj, name) -> bool:
+    return name in obj if isinstance(obj, dict) else hasattr(obj, name)
+
+
 def field_params_from_numpy(params) -> dict[str, torch.Tensor]:
-    """``VoxelTriplaneParams`` fields (numpy; NamedTuple or dict) -> a
-    ``VoxelTriplaneField`` state dict of CPU float32 tensors (load it with
-    ``field.load_state_dict``, which copies onto the field's device)."""
+    """``VoxelTriplaneParams`` or ``NGPParams`` fields (numpy; NamedTuple
+    or dict) -> the matching field's state dict of CPU float32 tensors
+    (load it with ``field.load_state_dict``, which copies onto the
+    field's device)."""
     sd = {k: torch.as_tensor(np.array(_get(params, k), np.float32))
-          for k in _FEATURES}
+          for k in _FEATURES if _has(params, k)}
     for k in _MLPS:
         for i, a in enumerate(_get(params, k)):
             sd[f"{k}.{i}"] = torch.as_tensor(np.array(a, np.float32))
@@ -69,6 +76,29 @@ def seeded_field_params(voxel_res: int, plane_res: int, seed: int, *,
            "plane_xz": feat(Gp, Gp, plane_feats),
            "plane_yz": feat(Gp, Gp, plane_feats)}
     out["sigma_w"], out["sigma_b"] = mlp((enc_dim, 64, 16))
+    out["color_w"], out["color_b"] = mlp((15, 64, 64, 3))
+    if sigma_bias is not None:
+        out["sigma_b"][-1][0] = sigma_bias
+    return out
+
+
+def seeded_ngp_params(n_levels: int, table_size: int, seed: int, *,
+                      n_features: int = 2, table_std: float = 0.1,
+                      sigma_bias: float | None = None) -> dict[str, object]:
+    """NGP field params from a numpy seed, as a dict with the ``NGPParams``
+    field names (MLP entries are lists): table N(0, table_std^2) of shape
+    (n_levels, table_size, n_features), He-init head weights, zero
+    biases, and ``sigma_bias`` written into the raw-sigma output bias."""
+    rng = np.random.default_rng(seed)
+    out = {"table": (table_std * rng.standard_normal(
+        (n_levels, table_size, n_features), np.float32))}
+
+    def mlp(dims):
+        ws = [(rng.standard_normal((a, b)) * np.sqrt(2.0 / a))
+              .astype(np.float32) for a, b in zip(dims[:-1], dims[1:])]
+        return ws, [np.zeros((b,), np.float32) for b in dims[1:]]
+
+    out["sigma_w"], out["sigma_b"] = mlp((n_levels * n_features, 64, 16))
     out["color_w"], out["color_b"] = mlp((15, 64, 64, 3))
     if sigma_bias is not None:
         out["sigma_b"][-1][0] = sigma_bias
@@ -110,47 +140,69 @@ def grid_state_from_numpy(grid, *, device: torch.device | str
                              device=device))
 
 
-def _adam_state(opt_state):
-    """The optax ``ScaleByAdamState`` (count, mu, nu) inside a numpy copy
-    of ``make_optimizer``'s state (apply_if_finite -> multi_transform ->
-    masked -> (adam, schedule)): the first node with mu and nu fields."""
-    if hasattr(opt_state, "mu") and hasattr(opt_state, "nu"):
-        return opt_state
-    kids = (opt_state.values() if isinstance(opt_state, dict)
-            else opt_state if isinstance(opt_state, (tuple, list)) else ())
-    for kid in kids:
-        found = _adam_state(kid)
-        if found is not None:
-            return found
-    return None
+def _adam_state(opt_state, group: str = "field"):
+    """The optax ``ScaleByAdamState`` (count, mu, nu) of one parameter
+    group inside a numpy copy of ``make_optimizer``'s state
+    (apply_if_finite -> multi_transform -> {group: masked -> (adam,
+    schedule)}): the first node with mu and nu fields under the dict entry
+    ``group``; None where the group has no Adam."""
+    def find(node, inside):
+        if inside and hasattr(node, "mu") and hasattr(node, "nu"):
+            return node
+        if isinstance(node, dict):
+            kids = ([(node[group], True)] if group in node
+                    else [(v, inside) for v in node.values()])
+        elif isinstance(node, (tuple, list)):
+            kids = [(v, inside) for v in node]
+        else:
+            kids = []
+        for kid, ins in kids:
+            found = find(kid, ins)
+            if found is not None:
+                return found
+        return None
+    return find(opt_state, False)
 
 
 def train_state_from_numpy(state, field, model, *,
                            device: torch.device | str):
     """A numpy copy of a JAX ``TrainState`` (``jax.tree.map(np.asarray,
-    state)``; params ``{"field": VoxelTriplaneParams, "smpl": ()}``, opt
-    state from ``make_optimizer``) -> the port's ``TrainState``: the field
-    params are loaded into ``field`` (the module ``model`` trains), the
-    optimizer is bound to them with the Adam moments and count, and grid,
-    canonical bake, normalization and step come across."""
+    state)``; params ``{"field": VoxelTriplaneParams | NGPParams, "smpl":
+    SMPLParams | ()}``, opt state from ``make_optimizer``) -> the port's
+    ``TrainState``: the field params are loaded into ``field`` (the module
+    ``model`` trains), the SMPL parameters become the state's leaves when
+    ``model.optimize_smpl``, the optimizer is bound to both with each
+    group's Adam moments and count, and grid, canonical bake,
+    normalization and step come across."""
     from .train.model import TrainState
+    from .train.smpl_params import SMPLParams
     field.load_state_dict(field_params_from_numpy(state.params["field"]))
+    jsmpl = state.params.get("smpl")
+    smpl = (SMPLParams.from_arrays(jsmpl._asdict(), device=device)
+            if model.optimize_smpl and hasattr(jsmpl, "_asdict") else None)
     opt = model.optimizer.init({"field": list(field.parameters()),
-                                "smpl": []})
+                                "smpl": list(smpl or ())})
     adam = _adam_state(state.opt_state)
-    if adam is not None:
+    if adam is not None and opt.field is not None:
         names = [n for n, _ in field.named_parameters()]
         mu = field_params_from_numpy(adam.mu["field"])
         nu = field_params_from_numpy(adam.nu["field"])
         opt.load_moments([mu[n] for n in names], [nu[n] for n in names],
                          int(adam.count))
+    adam = _adam_state(state.opt_state, "smpl")
+    if adam is not None and opt.smpl is not None:
+        opt.load_moments([torch.as_tensor(np.array(a).reshape(p.shape))
+                          for a, p in zip(adam.mu["smpl"], smpl)],
+                         [torch.as_tensor(np.array(a).reshape(p.shape))
+                          for a, p in zip(adam.nu["smpl"], smpl)],
+                         int(adam.count), group="smpl")
     return TrainState(
         deformer_cano=snarf_canonical_from_numpy(state.deformer_cano,
                                                  device=device),
         grid=grid_state_from_numpy(state.grid, device=device),
         center=torch.as_tensor(np.array(state.center), device=device),
         scale=torch.as_tensor(np.array(state.scale), device=device),
-        opt_state=opt, step=int(state.step))
+        opt_state=opt, step=int(state.step), smpl=smpl)
 
 
 def checkpoint_from_jax_state(state, field, model, path):
@@ -162,5 +214,5 @@ def checkpoint_from_jax_state(state, field, model, path):
 
     from .train.harness import save_checkpoint
     tstate = train_state_from_numpy(state, field, model,
-                                    device=field.voxel.device)
+                                    device=next(field.parameters()).device)
     return save_checkpoint(Path(path) / "checkpoints", tstate, field)

@@ -60,6 +60,11 @@ class _Split:
     def _frame(self, idx: int) -> tuple[np.ndarray, np.ndarray]:
         raise NotImplementedError
 
+    def get_smpl_params(self) -> dict[str, np.ndarray]:
+        """Copies of the split's per-frame SMPL arrays (the initial values
+        of the optimized SMPL parameters)."""
+        return {k: v.copy() for k, v in self.smpl_params.items()}
+
     def __getitem__(self, idx: int) -> dict[str, Any]:
         img, msk = self._frame(idx)
         if self.split == "train":

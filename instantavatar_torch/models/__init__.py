@@ -1,5 +1,5 @@
-from .ngp import _init_mlp, _mlp, bbox_center_scale
+from .ngp import NGPField, _init_mlp, _mlp, bbox_center_scale, trunc_exp
 from .voxel_triplane import VoxelTriplaneField, mlp_head
 
-__all__ = ["_init_mlp", "_mlp", "bbox_center_scale", "VoxelTriplaneField",
-           "mlp_head"]
+__all__ = ["_init_mlp", "_mlp", "bbox_center_scale", "trunc_exp",
+           "NGPField", "VoxelTriplaneField", "mlp_head"]

@@ -9,10 +9,13 @@ error] triptychs and ``results.txt``.
 
 Checkpoints keep the JAX layout, ``checkpoints/step_%08d/`` with a
 ``metrics.json``; inside is one ``torch.save`` of plain containers of
-tensors (``state.pt``): the field's ``state_dict``, the Adam moments and
-counts, the density grid, the SNARF canonical bake, the input
-normalization and the step. Scalars go to ``tensorboard/scalars.jsonl``
-under the JAX package's TensorBoard tags; images go out as PNGs.
+tensors (``state.pt``): the field's ``state_dict``, the Adam moments (per
+group) and counts, the density grid, the SNARF canonical bake, the input
+normalization, the step and, when the model optimizes them, the per-frame
+SMPL parameters. ``graft`` takes a train run's field, grid, bake and
+normalization into a fresh state (the refine flow). Scalars go to
+``tensorboard/scalars.jsonl`` under the JAX package's TensorBoard tags;
+images go out as PNGs.
 
 The step's random draws come from a ``torch.Generator`` seeded from
 ``seed``. The loop steps one call at a time and copies each batch from
@@ -37,7 +40,7 @@ from ..utils.image_io import jet, write_png
 from .model import AvatarModel, RenderSession, TrainState
 
 __all__ = ["Trainer", "save_checkpoint", "restore_checkpoint",
-           "latest_checkpoint"]
+           "latest_checkpoint", "graft"]
 
 
 # -- checkpoints -------------------------------------------------------------
@@ -46,20 +49,17 @@ def _checkpoint_contents(state: TrainState, field) -> dict:
     adam = None
     opt = state.opt_state
     if opt is not None:
-        moments = {"exp_avg": [], "exp_avg_sq": []}
-        if opt.field is not None:
-            st = [opt.field.state.get(p)
-                  for p in opt.field.param_groups[0]["params"]]
-            if all(s and "exp_avg" in s for s in st):
-                for k in moments:
-                    moments[k] = [s[k] for s in st]
-        adam = {"count": opt.count, "notfinite_count": opt.notfinite_count,
-                **moments}
+        adam = {"count": opt.count, "notfinite_count": opt.notfinite_count}
+        for group, prefix in (("field", ""), ("smpl", "smpl_")):
+            mu, nu = opt.moments(group) or ([], [])
+            adam[prefix + "exp_avg"], adam[prefix + "exp_avg_sq"] = mu, nu
     return {"field": field.state_dict(), "adam": adam,
             "grid": state.grid._asdict(),
             "deformer_cano": state.deformer_cano._asdict(),
             "center": state.center, "scale": state.scale,
-            "step": int(state.step)}
+            "step": int(state.step),
+            "smpl": (None if state.smpl is None else
+                     {k: v.detach() for k, v in state.smpl._asdict().items()})}
 
 
 def save_checkpoint(ckpt_dir: str | Path, state: TrainState, field,
@@ -90,25 +90,54 @@ def latest_checkpoint(ckpt_dir: str | Path) -> Path | None:
     return cands[-1] if cands else None
 
 
-def restore_checkpoint(path: str | Path, target: TrainState,
-                       field) -> TrainState:
-    """Restore a checkpoint into ``field`` and the structure of ``target``
-    (an initialized state whose optimizer is bound to ``field``), on the
-    target's device."""
+def _load(path: str | Path, target: TrainState, field) -> dict:
+    """Read a checkpoint onto the target's device and load its field
+    parameters into ``field``."""
     ck = torch.load(Path(path) / "state.pt", weights_only=True,
                     map_location=target.center.device)
     field.load_state_dict(ck["field"])
+    return ck
+
+
+def restore_checkpoint(path: str | Path, target: TrainState,
+                       field) -> TrainState:
+    """Restore a checkpoint into ``field`` and the structure of ``target``
+    (an initialized state whose optimizer is bound to ``field`` and to
+    ``target.smpl``, whose leaves take the saved values in place), on the
+    target's device."""
+    ck = _load(path, target, field)
     opt, adam = target.opt_state, ck["adam"]
     if opt is not None and adam is not None:
-        if adam["exp_avg"]:
-            opt.load_moments(adam["exp_avg"], adam["exp_avg_sq"],
-                             adam["count"])
+        for group, prefix in (("field", ""), ("smpl", "smpl_")):
+            if adam.get(prefix + "exp_avg"):
+                opt.load_moments(adam[prefix + "exp_avg"],
+                                 adam[prefix + "exp_avg_sq"], adam["count"],
+                                 group=group)
         opt.count = adam["count"]
         opt.notfinite_count = adam["notfinite_count"]
+    if (ck.get("smpl") is None) != (target.smpl is None):
+        raise ValueError(f"{path}: the checkpoint's SMPL parameters do not "
+                         f"match the model's optimize_smpl")
+    if target.smpl is not None:
+        with torch.no_grad():
+            for k, v in target.smpl._asdict().items():
+                v.copy_(ck["smpl"][k])
     return target._replace(
         grid=DensityGridState(**ck["grid"]),
         deformer_cano=SnarfCanonical(**ck["deformer_cano"]),
         center=ck["center"], scale=ck["scale"], step=ck["step"])
+
+
+def graft(path: str | Path, target: TrainState, field) -> TrainState:
+    """The field parameters, grid, canonical bake and input normalization
+    of a checkpoint on a fresh ``target``, which keeps its own SMPL
+    parameters, optimizer state and step (the refine flow's cross-stage
+    restore: a train run's avatar, the test split's poses)."""
+    ck = _load(path, target, field)
+    return target._replace(
+        grid=DensityGridState(**ck["grid"]),
+        deformer_cano=SnarfCanonical(**ck["deformer_cano"]),
+        center=ck["center"], scale=ck["scale"])
 
 
 def _to_image(x: np.ndarray) -> np.ndarray:
@@ -164,11 +193,15 @@ class Trainer:
 
     def init_state(self) -> TrainState:
         """A fresh state: field params from a generator seeded ``seed``,
-        the canonical bake from the training split's betas."""
+        the canonical bake from the training split's betas and, when the
+        model optimizes SMPL parameters, those of the training split."""
         gen = torch.Generator(device=self.avatar.device).manual_seed(
             self.seed)
-        return self.avatar.init(self.dm.trainset.smpl_params["betas"],
-                                generator=gen)
+        trainset = self.dm.trainset
+        return self.avatar.init(
+            trainset.smpl_params["betas"], generator=gen,
+            smpl_params=(trainset.get_smpl_params()
+                         if self.avatar.optimize_smpl else None))
 
     # -- fit ------------------------------------------------------------------
 
@@ -192,6 +225,7 @@ class Trainer:
         # the host seconds of the batch assembly alone
         self.epoch_seconds: list[float] = []
         self.batch_seconds = 0.0
+        self.last_losses: dict = {}   # the last step's loss components
         t0 = time.time()
         for epoch in range(start_epoch, self.max_epochs):
             t_epoch = time.perf_counter()
@@ -200,6 +234,7 @@ class Trainer:
                 batch = _to_device(trainset[int(i)], dev)
                 self.batch_seconds += time.perf_counter() - t_batch
                 state, losses = self.avatar.step(state, batch, gen)
+                self.last_losses = losses
                 step += 1
                 if step % self.log_every == 0:
                     scal = {k: float(v) for k, v in losses.items()

@@ -9,13 +9,25 @@ density sweep updates the occupancy grid and adds the occupancy
 regularizer; the render marches (N, k_cap) slots through the cached-search
 field closure (``train_warp_cache``: a per-cell warp-cache bake on the
 first ``cell_budget`` occupied cells in flat order, one cached-Newton step
-and the pose correction per sample); then ``nerf_loss``, autograd and the
-grouped Adam. The field's parameters live in its module and are updated in
-place; the step's random draws (``StepDraws``) come from a
-``torch.Generator`` or are passed in. Training evaluates the head through
-``_mlp`` (``head="mlp"``); the no-grad parts (the bake's candidate sort,
-the test-grid sweep, the frame render) use the fused head, the CUDA kernel
-on the card.
+and the pose correction per sample); then ``nerf_loss`` (or ``ngp_loss``
+when the config asks for its depth term), autograd and the grouped Adam.
+The field (``VoxelTriplaneField`` or ``NGPField``) keeps its parameters in
+its module, updated in place; the step's random draws (``StepDraws``) come
+from a ``torch.Generator`` or are passed in. Training evaluates the head
+through ``_mlp`` (``head="mlp"``); the no-grad parts (the bake's candidate
+sort, the test-grid sweep, the frame render) use the fused head: the CUDA
+kernel on the card for the voxel-triplane field, the fp32 ``_mlp`` for
+NGP.
+
+SMPL optimization (``optimize_smpl``, the refine and fitting flows): the
+per-frame SMPL parameters are leaf tensors in ``TrainState.smpl`` and the
+optimizer's ``smpl`` group; every step, grid update and frame render
+swaps the batch frame's pose for them (``_resolve_batch``, by ``idx``).
+Pose gradients reach them through ``prepare`` (bone transforms, the
+voxel_J bake), the world->SMPL ray transform and the deformer's
+``_grad_correct``; the Broyden search records no graph, as in JAX. The
+refine flow (``is_refine``) also turns the sigma noise and the occupancy
+regularizer off, and its optimizer freezes the field.
 
 Inference (``build_pose_grid``, ``build_test_grid``, the flat branch of
 ``_render_frame_fused``, ``RenderSession``, ``render_frame``,
@@ -54,8 +66,8 @@ import torch
 from ..body import SMPLModel
 from ..deformers.fast_snarf import SNARFDeformer, SnarfCanonical
 from ..deformers.packed_cache import select_candidate
-from ..losses.nerf_loss import nerf_loss
-from ..models.ngp import bbox_center_scale
+from ..losses.nerf_loss import nerf_loss, ngp_loss, refuse_lpips
+from ..models.ngp import NGPField, bbox_center_scale
 from ..models.voxel_triplane import VoxelTriplaneField
 from ..ops.knn import knn_points
 from ..render.compositing import composite_stream
@@ -64,6 +76,7 @@ from ..render.density_grid import (DensityGridState, initialize_grid,
                                    occupancy_regularizer, update_grid)
 from ..render.raymarcher import Rays, ray_aabb, render_rays, sample_z
 from .optim import GroupedAdam, OptimizerSpec, make_optimizer
+from .smpl_params import SMPLParams, lookup_frame
 
 __all__ = ["AvatarModel", "TrainState", "StepDraws",
            "FlatStream", "RenderSession", "WORLD_AABB"]
@@ -74,13 +87,15 @@ WORLD_AABB = ((-1.25, -1.55, -1.25), (1.25, 0.95, 1.25))
 
 class TrainState(NamedTuple):
     """Per-subject state (the JAX ``TrainState``; the field's parameters
-    live in its module). Rendering reads only the first four fields."""
+    live in its module). Rendering reads the first four fields and
+    ``smpl``."""
     deformer_cano: SnarfCanonical
     grid: DensityGridState
     center: torch.Tensor   # (3,) field input normalization
     scale: torch.Tensor    # (3,)
-    opt_state: GroupedAdam | None = None  # bound to the field's parameters
+    opt_state: GroupedAdam | None = None  # bound to the field and smpl
     step: int = 0
+    smpl: SMPLParams | None = None        # with optimize_smpl
 
 
 class StepDraws(NamedTuple):
@@ -133,7 +148,7 @@ class AvatarModel:
     """Composition descriptor: body, field module, deformer and knobs."""
 
     def __init__(self, body_model: SMPLModel,
-                 field: VoxelTriplaneField,
+                 field: VoxelTriplaneField | NGPField,
                  deformer: SNARFDeformer,
                  *,
                  n_steps: int = 256,
@@ -141,6 +156,8 @@ class AvatarModel:
                  grid_size: int = 64,
                  grid_update_interval: int = 20,
                  noise_steps: int = 1000,
+                 optimize_smpl: bool = False,
+                 is_refine: bool = False,
                  eval_grid: str = "density",
                  shell_margin: float = 0.12,
                  use_warp_cache: bool = True,
@@ -160,9 +177,12 @@ class AvatarModel:
         Training reads ``n_steps`` (dense samples per ray), ``k_cap``
         (evaluated slots per ray), ``grid_size``, ``grid_update_interval``,
         ``noise_steps`` (sigma noise std 1 before this step, 0 disables),
-        ``train_warp_cache``, ``cell_budget`` (occupied cells the cached
-        search bakes, default max(G^3 / 8, 1024)), ``loss_weights``
-        (w_rgb, w_alpha, w_reg) and ``optimizer`` (default: optax.adam(1e-2)'s
+        ``optimize_smpl`` (per-frame SMPL parameters in the state, see
+        ``init``), ``is_refine`` (no sigma noise, no occupancy
+        regularizer), ``train_warp_cache``, ``cell_budget`` (occupied
+        cells the cached search bakes, default max(G^3 / 8, 1024)),
+        ``loss_weights`` (w_rgb, w_alpha, w_reg, and ngp_loss's w_depth_reg;
+        w_lpips > 0 raises) and ``optimizer`` (default: optax.adam(1e-2)'s
         settings). The flat render reads ``grid_size``, ``eval_grid``,
         ``shell_margin``, ``cache_n_cand``, ``term_T``, ``prepass_steps`` and
         ``prepass_block``. ``samples_per_ray`` and ``eval_n_steps`` sized the
@@ -181,7 +201,10 @@ class AvatarModel:
         self.k_cap = k_cap
         self.grid_size = grid_size
         self.grid_update_interval = grid_update_interval
-        self.noise_steps = noise_steps
+        # refine mode disables the sigma noise
+        self.noise_steps = 0 if is_refine else noise_steps
+        self.optimize_smpl = optimize_smpl
+        self.is_refine = is_refine
         self.eval_grid = eval_grid
         self.shell_margin = shell_margin
         self.train_warp_cache = train_warp_cache
@@ -191,12 +214,15 @@ class AvatarModel:
         self.prepass_steps = prepass_steps
         self.prepass_block = prepass_block
         self.loss_weights = dict(w_rgb=1.0, w_alpha=0.1, w_reg=0.1)
-        unknown = set(loss_weights or ()) - set(self.loss_weights)
+        known = {"w_rgb", "w_alpha", "w_reg", "w_lpips", "w_depth_reg"}
+        unknown = set(loss_weights or ()) - known
         if unknown:   # never silently drop a loss term a config asks for
-            raise NotImplementedError(
-                f"loss weight(s) {sorted(unknown)}: only nerf_loss is "
-                f"ported (ngp_loss/LPIPS waits, ROADMAP.md)")
+            raise ValueError(f"unknown loss weight(s) {sorted(unknown)}; "
+                             f"supported: {sorted(known)}")
         self.loss_weights.update(loss_weights or {})
+        refuse_lpips(self.loss_weights.get("w_lpips", 0))
+        # ngp_loss (its depth term) when the config asks for it
+        self._use_ngp_loss = self.loss_weights.get("w_depth_reg", 0) > 0
         self.optimizer = optimizer or make_optimizer(
             1e-2, betas=(0.9, 0.999), eps=1e-8, skip_nonfinite=0)
 
@@ -206,12 +232,17 @@ class AvatarModel:
 
     # -- state ------------------------------------------------------------
 
-    def init(self, betas, generator: torch.Generator | None = None
-             ) -> TrainState:
+    def init(self, betas, generator: torch.Generator | None = None,
+             smpl_params: SMPLParams | dict | None = None) -> TrainState:
         """Bake the deformer's canonical state and the field's input
         normalization, and bind the optimizer to the field's parameters
-        (re-initialized from ``generator`` when one is given). The grid
-        starts fully occupied over ``WORLD_AABB``."""
+        (re-initialized from ``generator`` when one is given) and, with
+        ``optimize_smpl``, to fresh SMPL leaves made from ``smpl_params``
+        (arrays or tensors: betas, global_orient, body_pose, transl; the
+        dataset's ``get_smpl_params()``). The grid starts fully occupied
+        over ``WORLD_AABB``."""
+        if self.optimize_smpl and smpl_params is None:
+            raise ValueError("optimize_smpl=True needs initial smpl_params")
         if generator is not None:
             self.field.init(generator)
         cano = self.deformer.build_canonical(
@@ -219,10 +250,23 @@ class AvatarModel:
         center, scale = bbox_center_scale(cano.bbox)
         grid = make_grid_state(WORLD_AABB, self.grid_size, device=self.device)
         grid = grid._replace(occupancy=torch.ones_like(grid.occupancy))
+        smpl = (SMPLParams.from_arrays(
+            smpl_params._asdict() if isinstance(smpl_params, SMPLParams)
+            else smpl_params, device=self.device)
+            if self.optimize_smpl else None)
         return TrainState(deformer_cano=cano, grid=grid, center=center,
                           scale=scale, opt_state=self.optimizer.init(
                               {"field": list(self.field.parameters()),
-                               "smpl": []}))
+                               "smpl": list(smpl or ())}), smpl=smpl)
+
+    def _resolve_batch(self, state: TrainState, batch):
+        """The batch with its frame's optimized SMPL pose (global_orient,
+        body_pose, transl looked up by ``idx``) when the state carries
+        SMPL parameters; else the batch itself."""
+        if not self.optimize_smpl or state.smpl is None:
+            return batch
+        return {**batch, **{k: v for k, v in lookup_frame(
+            state.smpl, batch["idx"]).items() if k != "betas"}}
 
     def _prepare(self, cano, batch):
         dev = self.device
@@ -356,14 +400,15 @@ class AvatarModel:
     def grads_and_losses(self, state: TrainState, batch, draws: StepDraws,
                          with_grid_update: bool = False
                          ) -> tuple[dict, DensityGridState]:
-        """Loss and gradients of one step: the gradients land in the field
-        parameters' ``.grad``; returns (loss components, the grid the step
-        leaves)."""
-        for p in self.field.parameters():
+        """Loss and gradients of one step: the gradients land in the
+        ``.grad`` of the field parameters and of the SMPL leaves; returns
+        (loss components, the grid the step leaves)."""
+        for p in list(self.field.parameters()) + list(state.smpl or ()):
             p.grad = None
         dev = self.device
         b = {k: _as_tensor(batch[k], dev) for k in ("rgb", "alpha")}
-        dstate = self._prepare(state.deformer_cano, batch)
+        rbatch = self._resolve_batch(state, batch)
+        dstate = self._prepare(state.deformer_cano, rbatch)
         new_grid, reg = state.grid, torch.zeros((), device=dev)
         if with_grid_update:
             new_grid, density_norm, old_occ = update_grid(
@@ -376,15 +421,25 @@ class AvatarModel:
                 state.step, self.grid_update_interval)
         noise_std = (1.0 if self.noise_steps > 0
                      and state.step < self.noise_steps else 0.0)
-        predicts = self.render(state, batch, dstate=dstate, grid=new_grid,
+        predicts = self.render(state, rbatch, dstate=dstate, grid=new_grid,
                                draws=draws, noise_std=noise_std)
-        total, losses = nerf_loss(predicts, b, **self.loss_weights)
-        total = total + reg
+        if self._use_ngp_loss:
+            total, losses = ngp_loss(predicts, b, **self.loss_weights)
+        else:
+            total, losses = nerf_loss(predicts, b, **{
+                k: self.loss_weights[k] for k in ("w_rgb", "w_alpha",
+                                                  "w_reg")})
+        if not self.is_refine:   # refine mode skips the occupancy reg
+            total = total + reg
         total.backward()
         losses = {k: v.detach() for k, v in losses.items()}
         losses["loss"] = total.detach()
         losses["reg_occupancy"] = reg.detach()
         losses["counter_avg"] = predicts["counter"].float().mean()
+        if rbatch is not batch:   # SMPL drift against the dataset's pose
+            for k in ("global_orient", "body_pose", "transl"):
+                losses[f"drift_{k}"] = (rbatch[k].detach() - _as_tensor(
+                    batch[k], dev)).abs().mean()
         return losses, new_grid
 
     def apply_grads(self, state: TrainState, new_grid: DensityGridState
@@ -420,7 +475,8 @@ class AvatarModel:
         """Per-pose grid from the posed body shell: cells within
         max(shell_margin, half a cell diagonal) of a posed vertex, over the
         forward-warped voxel's AABB."""
-        dstate = self._prepare(state.deformer_cano, batch)
+        dstate = self._prepare(state.deformer_cano,
+                               self._resolve_batch(state, batch))
         aabb = self.deformer.bbox_deformed(dstate)
         G = self.grid_size
         idx = (torch.arange(G, device=aabb.device) + 0.5) / G
@@ -444,7 +500,8 @@ class AvatarModel:
         the head being the fused one. ``jitter`` (5, G, G, G, 3) uniform
         draws; by default a generator seeded 0 on the model's device (JAX
         uses ``PRNGKey(0)``: same role, other numbers)."""
-        dstate = self._prepare(state.deformer_cano, batch)
+        dstate = self._prepare(state.deformer_cano,
+                               self._resolve_batch(state, batch))
         if jitter is None:
             g = torch.Generator(device=self.device).manual_seed(0)
             jitter = torch.rand((5,) + (self.grid_size,) * 3 + (3,),
@@ -516,6 +573,7 @@ class AvatarModel:
         p = self._block_size(H, W)
         Hb, Wb = H // p, W // p
         cano = state.deformer_cano
+        batch = self._resolve_batch(state, batch)
         # -- 1. frame bake --------------------------------------------------
         dstate = self._prepare(cano, batch)
         aabb = grid.aabb
@@ -671,16 +729,19 @@ class AvatarModel:
         """Full-frame inference from a batch that carries ``ray_basis``
         (the datasets' full-image batches and the CLIs' camera batches);
         its per-pixel ``rays_o``/``rays_d``/``near``/``far``, if any, are
-        not read. ``grid`` None builds the frame's grid (see
-        ``_frame_grid``). ``chunk`` and ``payload`` size the JAX render's
-        buffers and are accepted for its signature only. Returns device
-        tensors rgb (n, 3), depth, alpha, counter (n,) plus the frame's
-        kept-sample and occupied-cell counts."""
+        not read. With SMPL parameters in the state, the frame ``idx``'s
+        optimized pose replaces the batch's. ``grid`` None builds the
+        frame's grid (see ``_frame_grid``). ``chunk`` and ``payload`` size
+        the JAX render's buffers and are accepted for its signature only.
+        Returns device tensors rgb (n, 3), depth, alpha, counter (n,) plus
+        the frame's kept-sample and occupied-cell counts."""
         if image_shape is None:
             raise ValueError("the flat render needs image_shape")
         if "ray_basis" not in batch:
             raise ValueError("the flat render needs the batch's ray_basis "
                              "(a pinhole camera)")
+        with torch.no_grad():
+            batch = self._resolve_batch(state, batch)
         if grid is None:
             grid = self._frame_grid(state, batch, session)
         stream = self.render_stream(state, batch, grid, image_shape, session)

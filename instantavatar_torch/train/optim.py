@@ -1,12 +1,15 @@
-"""Optimizer: grouped Adam with the step-wise polynomial epoch decay and
-the skip of non-finite updates.
+"""Optimizer: grouped Adam with the step-wise polynomial epoch decay, the
+frozen field of the refine flow and the skip of non-finite updates.
 
 Port of ``instantavatar_tpu/train/optim.py``: the ``field`` group is a
 ``torch.optim.Adam`` (betas (0.9, 0.99), eps 1e-15) whose learning rate
 is ``lr * (1 - epoch / max_epochs) ** 1.5`` with epoch = count //
 steps_per_epoch, count being the number of updates applied so far (the
 count optax's schedule reads); the ``smpl`` group gets its own Adam at
-``smpl_lr``, or no update when ``smpl_lr`` is None.
+``smpl_lr`` (no decay), or no update when ``smpl_lr`` is None. With
+``freeze_field`` (JAX's ``optax.set_to_zero()`` on the field group, which
+the refine flow sets) the field group has no Adam: its parameters stay
+bit-identical and keep no moments.
 
 ``skip_nonfinite`` copies ``optax.apply_if_finite(inner,
 max_consecutive_errors=skip_nonfinite)``: a step whose gradients are not
@@ -43,6 +46,7 @@ class OptimizerSpec:
     smpl_lr: float | None = None
     max_epochs: int | None = None
     steps_per_epoch: int = 100
+    freeze_field: bool = False
     betas: tuple[float, float] = (0.9, 0.99)
     eps: float = 1e-15
     skip_nonfinite: int = 10
@@ -59,14 +63,13 @@ class OptimizerSpec:
 
 def make_optimizer(lr: float = 1e-2, smpl_lr: float | None = None, *,
                    max_epochs: int | None = None, steps_per_epoch: int = 100,
+                   freeze_field: bool = False,
                    betas: tuple[float, float] = (0.9, 0.99),
                    eps: float = 1e-15,
                    skip_nonfinite: int = 10) -> OptimizerSpec:
-    """The grouped optimizer over ``{"field": [...], "smpl": [...]}``.
-    (JAX's ``freeze_field``, which only the refine flow sets, is not
-    ported.)"""
+    """The grouped optimizer over ``{"field": [...], "smpl": [...]}``."""
     return OptimizerSpec(lr, smpl_lr, max_epochs, steps_per_epoch,
-                         tuple(betas), eps, skip_nonfinite)
+                         freeze_field, tuple(betas), eps, skip_nonfinite)
 
 
 class GroupedAdam:
@@ -81,7 +84,7 @@ class GroupedAdam:
                                                                      ()))
         adam = dict(betas=spec.betas, eps=spec.eps)
         self.field = (torch.optim.Adam(field, lr=spec.field_lr(0), **adam)
-                      if field else None)
+                      if field and not spec.freeze_field else None)
         self.smpl = (torch.optim.Adam(smpl, lr=spec.smpl_lr, **adam)
                      if smpl and spec.smpl_lr is not None else None)
         self.count = 0             # updates applied (the schedule's count)
@@ -109,13 +112,26 @@ class GroupedAdam:
         self.count += 1
         return True
 
+    def moments(self, group: str = "field"
+                ) -> tuple[list[torch.Tensor], list[torch.Tensor]] | None:
+        """The group's Adam moments in parameter order, or None before its
+        first update (or for a group without an Adam)."""
+        opt = getattr(self, group)
+        if opt is None:
+            return None
+        st = [opt.state.get(p) for p in opt.param_groups[0]["params"]]
+        if not all(s and "exp_avg" in s for s in st):
+            return None
+        return [s["exp_avg"] for s in st], [s["exp_avg_sq"] for s in st]
+
     def load_moments(self, mu: list[torch.Tensor], nu: list[torch.Tensor],
-                     count: int) -> None:
-        """Set the field group's Adam moments (in parameter order) and the
-        update count, e.g. from an optax state."""
-        params = self.field.param_groups[0]["params"]
-        for p, m, v in zip(params, mu, nu, strict=True):
-            self.field.state[p] = {
+                     count: int, group: str = "field") -> None:
+        """Set a group's Adam moments (in parameter order) and the update
+        count, e.g. from an optax state."""
+        opt = getattr(self, group)
+        for p, m, v in zip(opt.param_groups[0]["params"], mu, nu,
+                           strict=True):
+            opt.state[p] = {
                 "step": torch.tensor(float(count), dtype=torch.float32),
                 "exp_avg": m.to(p).clone(), "exp_avg_sq": v.to(p).clone()}
         self.count = count

@@ -74,15 +74,20 @@ def setup_run(cfg: Any) -> Path:
     return run_dir
 
 
-def load_trained_state(trainer, run_dir: Path,
+def load_trained_state(trainer, run_dir: Path, *, drop_smpl: bool = False,
                        ckpt_subdir: str = "checkpoints"):
-    """Init a fresh state and restore the latest checkpoint into it."""
-    from ..train.harness import latest_checkpoint, restore_checkpoint
+    """Init a fresh state and restore the latest checkpoint into it.
+
+    ``drop_smpl`` (the refine flow): take only the field, grid, canonical
+    bake and normalization from the train run (``graft``), keeping the
+    fresh state's SMPL parameters (the trainer's split), optimizer and
+    step 0."""
+    from ..train.harness import graft, latest_checkpoint, restore_checkpoint
     last = latest_checkpoint(Path(run_dir) / ckpt_subdir)
     if last is None:
         raise FileNotFoundError(f"no checkpoint under {run_dir}/"
                                 f"{ckpt_subdir}: train first")
-    state = restore_checkpoint(last, trainer.init_state(),
-                               trainer.avatar.field)
+    state = (graft if drop_smpl else restore_checkpoint)(
+        last, trainer.init_state(), trainer.avatar.field)
     print(f"[cli] restored {last}")
     return state

@@ -1,8 +1,10 @@
 """The port's entry points on the CPU (``+device=cpu``) at the sizes of
 ``tests/test_cli_pipeline.py``: train -> resume (a no-op) -> test ->
-animate -> novel_view through ``instantavatar_torch.cli``; checkpoint
-save/restore; the device rule; the same flow in a subprocess with the
-JAX side's libraries blocked; and the slice
+animate -> novel_view, eval (refine) and fit through
+``instantavatar_torch.cli``; a train run at the confs' default network
+(NGP, the default hash grid); checkpoint save/restore; the device rule;
+the same flow in a subprocess with the JAX side's libraries blocked; and
+the slice
 test: a JAX state carried into a run directory through
 ``checkpoint_from_jax_state``, rendered by the port's ``animate`` CLI
 against JAX's ``render_frames`` on the same animation batches."""
@@ -21,6 +23,8 @@ import torch
 
 from instantavatar_torch import convert
 from instantavatar_torch.cli import animate, novel_view, train
+from instantavatar_torch.cli import eval as eval_cli
+from instantavatar_torch.cli import fit as fit_cli
 from instantavatar_torch.config import load_config
 from instantavatar_torch.config.build import build_trainer
 from instantavatar_torch.data import make_synthetic_sequence
@@ -184,6 +188,93 @@ def test_render_session_reuses_the_frame_grid(flow, monkeypatch):
     assert calls == ["build_test_grid"] * 3 + ["build_pose_grid"] * 2
 
 
+def test_cli_eval_refine(flow, tmp_path):
+    """tests/test_cli_pipeline.py's eval run on a copy of the trained run:
+    the refine conf retargets the train split to the test frames, grafts
+    the train checkpoint, refines for one epoch and writes ``results.txt``
+    and ``test/{i}.png``. The field after refinement is bit-identical to
+    the train checkpoint's and holds no Adam state; the SMPL parameters
+    moved from the test split's poses."""
+    import shutil
+    run = tmp_path / "run"
+    shutil.copytree(flow["run"], run)
+    ck = torch.load(sorted((run / "checkpoints").glob("step_*"))[-1]
+                    / "state.pt", weights_only=True)
+    trainer, state, res = eval_cli.main(
+        ["--config-name", "SNARF_NGP_refine", "train.max_epochs=1",
+         "sampler.num_sample=256", "sampler.kernel_size=4",
+         *_overrides(flow["seq"], run)])
+    results = (run / "results.txt").read_text()
+    psnr = float([ln for ln in results.splitlines()
+                  if ln.startswith("psnr")][0].split(":")[1])
+    assert np.isfinite(psnr) and res.keys() == {"psnr", "ssim"}
+    assert (run / "test" / "0.png").exists()
+    assert list((run / "refinement" / "checkpoints").glob("step_*"))
+    assert len(trainer.dm.trainset) == 2 and state.step == 2
+    for k, v in trainer.avatar.field.state_dict().items():
+        assert torch.equal(v, ck["field"][k]), k
+    assert state.opt_state.field is None
+    sp = trainer.dm.trainset.get_smpl_params()
+    assert np.abs(state.smpl.transl.detach().numpy() - sp["transl"]).sum() > 0
+
+
+def test_cli_fit_exports_poses(tmp_path):
+    """tests/test_cli_pipeline.py's fit run, LPIPS off: two frames, one
+    epoch, the fitting conf (version-2 deformer, ngp_loss's depth term);
+    ``poses/train.npz`` holds every frame's parameters and the loss logs
+    carry the depth term."""
+    seq = make_synthetic_sequence(tmp_path / "seq", n_frames=2, H=32, W=32,
+                                  device="cpu")
+    trainer, state, out = fit_cli.main(
+        ["--config-name", "SNARF_NGP_fitting",
+         "model.opt.loss.opt.w_lpips=0", "train.max_epochs=1",
+         "train.check_val_every_n_epoch=1", "sampler.num_patch=2",
+         "sampler.patch_size=16", *_overrides(seq, tmp_path / "run"),
+         "dataset.opt.train.end=1", "dataset.opt.val.end=0",
+         "dataset.opt.test.start=0", "dataset.opt.test.end=1"])
+    assert out == seq / "poses" / "train.npz" and out.exists()
+    data = np.load(out)
+    assert data["body_pose"].shape == (2, 69)
+    assert data["transl"].shape == (2, 3) and data["betas"].shape == (1, 10)
+    assert trainer.avatar.deformer.version == 2
+    losses = trainer.last_losses
+    assert "loss_depth_reg" in losses and "drift_transl" in losses
+    assert all(np.isfinite(float(v)) for v in losses.values())
+
+
+def test_fit_at_its_conf_lpips_raises(tmp_path):
+    """The fitting conf's own ``w_lpips: 0.01`` stops the CLI before it
+    writes anything, naming the ROADMAP item that ports LPIPS."""
+    with pytest.raises(NotImplementedError, match="open item 4"):
+        fit_cli.main(["--config-name", "SNARF_NGP_fitting",
+                      *_overrides(tmp_path / "seq", tmp_path / "run")])
+    assert not (tmp_path / "run").exists()
+
+
+def test_cli_train_at_the_default_network(tmp_path):
+    """``train`` with no network override builds the confs' NGPField at
+    the default 16 x 2 @ 2^19 hash grid (48 px, 2 frames, 1 epoch): the
+    checkpoint holds the table, the validation frame is finite."""
+    seq = make_synthetic_sequence(tmp_path / "seq", n_frames=3, H=48, W=48,
+                                  device="cpu")
+    over = [a for a in _overrides(seq, tmp_path / "run")
+            if not a.startswith("network")] + ["dataset.opt.train.end=1"]
+    trainer, state = train.main(["--config-name", "SNARF_NGP",
+                                 "train.max_epochs=1", "sampler.num_patch=2",
+                                 "sampler.patch_size=16", *over])
+    field = trainer.avatar.field
+    assert type(field).__name__ == "NGPField"
+    assert field.table.shape == (16, 2 ** 19, 2) and state.step == 2
+    ck = torch.load(sorted((tmp_path / "run" / "checkpoints")
+                           .glob("step_*"))[-1] / "state.pt",
+                    weights_only=True)
+    assert torch.equal(ck["field"]["table"], field.table.detach())
+    tags = (tmp_path / "run" / "tensorboard" / "scalars.jsonl").read_text()
+    psnr = [float(ln.split('"value": ')[1].split(",")[0])
+            for ln in tags.splitlines() if '"val/psnr"' in ln]
+    assert psnr and all(np.isfinite(psnr))
+
+
 def test_checkpoint_round_trip(flow, tmp_path):
     """save -> restore into a fresh state gives the same tensors (field,
     Adam moments and counts, grid, canonical bake, normalization, step)
@@ -225,13 +316,19 @@ def test_entry_points_need_a_gpu_or_the_cpu_key(flow, monkeypatch, tmp_path):
             if a != "+device=cpu"]
     with pytest.raises(SystemExit, match=r"\+device=cpu"):
         train.main(TRAIN_ARGS + over)
+    with pytest.raises(SystemExit, match=r"\+device=cpu"):
+        eval_cli.main(["--config-name", "SNARF_NGP_refine", *over])
+    with pytest.raises(SystemExit, match=r"\+device=cpu"):
+        fit_cli.main(["--config-name", "SNARF_NGP_fitting",
+                      "model.opt.loss.opt.w_lpips=0", *over])
     assert not (tmp_path / "run").exists()
 
 
 def test_cli_flow_runs_without_the_jax_side_libraries(tmp_path):
-    """The whole CPU flow in a fresh interpreter with yaml, cv2, imageio,
-    tensorboardX, PIL, orbax and jax (and the JAX package) blocked: the
-    entry path needs only torch, numpy and scipy."""
+    """The whole CPU flow (train, resume, test, animate, novel_view, eval,
+    fit) in a fresh interpreter with yaml, cv2, imageio, tensorboardX,
+    PIL, orbax and jax (and the JAX package) blocked: the entry path needs
+    only torch, numpy and scipy."""
     over = [a.replace("{SEQ}", str(tmp_path / "seq"))
             .replace("{RUN}", str(tmp_path / "run"))
             for a in _overrides("{SEQ}", "{RUN}")]
@@ -241,7 +338,7 @@ for m in {BLOCKED!r}:
     sys.modules[m] = None
 import numpy as np, torch
 torch.set_num_threads(2)
-from instantavatar_torch.cli import animate, novel_view, train
+from instantavatar_torch.cli import animate, eval, fit, novel_view, train
 from instantavatar_torch.data import make_synthetic_sequence
 from instantavatar_torch.train import RenderSession
 make_synthetic_sequence({str(tmp_path / 'seq')!r}, n_frames=3, H=48, W=48,
@@ -259,6 +356,11 @@ np.savez({str(tmp_path / 'p.npz')!r}, poses=poses,
 animate.main(["+pose_sequence={tmp_path / 'p.npz'}", "+render_downscale=20"]
              + over)
 novel_view.main(["+render_downscale=20", "+n_frames=2"] + over)
+eval.main(["--config-name", "SNARF_NGP_refine", "train.max_epochs=1",
+           "sampler.num_sample=256", "sampler.kernel_size=4"] + over)
+fit.main(["--config-name", "SNARF_NGP_fitting", "model.opt.loss.opt.w_lpips=0",
+          "train.max_epochs=1", "sampler.num_patch=2", "sampler.patch_size=16"]
+         + over + ["run_dir={tmp_path / 'fitrun'}"])
 assert all(sys.modules[m] is None for m in {BLOCKED!r})
 print("ENTRY PATH OK")
 """
@@ -268,8 +370,10 @@ print("ENTRY PATH OK")
     assert "ENTRY PATH OK" in res.stdout and "resumed from" in res.stdout
     run = tmp_path / "run"
     for f in ("results.txt", "animation/animation.gif",
-              "novel_view/novel_view.gif", "test/0.png"):
+              "novel_view/novel_view.gif", "test/0.png",
+              "refinement/checkpoints"):
         assert (run / f).exists(), f
+    assert (tmp_path / "seq" / "poses" / "train.npz").exists()
 
 
 def _jax_animate_module():

@@ -2,7 +2,8 @@
 PyYAML on every file of ``confs/`` and on single scalars, the emitter read
 back by PyYAML, ``load_config`` against JAX's on the four top-level
 configs (with and without the CLI test's overrides), the builder's knobs
-against JAX's ``build_avatar``, and the options the port does not have."""
+against JAX's ``build_avatar`` (the NGP field and the refine and fitting
+configs included), and the options the port does not have."""
 from pathlib import Path
 
 import pytest
@@ -121,17 +122,17 @@ def test_builder_knobs_match_jax(monkeypatch):
 
 
 @pytest.mark.parametrize("name,over,what", [
-    ("SNARF_NGP", [], "NGPField"),
-    ("SNARF_NGP", ["network=triplane"], "triplane"),
-    ("SNARF_NGP", ["network=mlp"], "mlp"),
+    ("SNARF_NGP", ["network=triplane"], "network=triplane"),
+    ("SNARF_NGP", ["network=mlp"], "network=mlp"),
     ("SNARF_NGP", ["network=voxel_triplane", "deformer=smpl"],
      "SMPLDeformer"),
-    ("SNARF_NGP_refine", ["network=voxel_triplane"], "optimize_SMPL"),
-    ("SNARF_NGP_fitting", ["network=voxel_triplane"], "optimize_SMPL"),
+    ("SNARF_NGP_fitting", [], "w_lpips"),
     ("demo", ["network=voxel_triplane"], "smpl_init"),
     ("SNARF_NGP", ["network=voxel_triplane",
                    "model.opt.loss.opt.w_lpips=0.1"], "w_lpips"),
-])
+], ids=["SNARF_NGP-over1-triplane", "SNARF_NGP-over2-mlp",
+        "SNARF_NGP-over3-SMPLDeformer", "SNARF_NGP_fitting-w_lpips",
+        "demo-over6-smpl_init", "SNARF_NGP-over7-w_lpips"])
 def test_unported_options_raise(name, over, what):
     """Each option the port lacks stops the build with the ROADMAP item
     that ports it, before anything is built."""
@@ -141,6 +142,45 @@ def test_unported_options_raise(name, over, what):
     assert "ROADMAP.md open item" in str(e.value)
     with pytest.raises(NotImplementedError, match=what):
         build_avatar(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("name,over", [
+    ("SNARF_NGP", []),
+    ("SNARF_NGP_refine", PIPELINE),
+    ("SNARF_NGP_fitting", PIPELINE + ["model.opt.loss.opt.w_lpips=0"]),
+])
+def test_ngp_and_smpl_configs_build_as_jax(monkeypatch, name, over):
+    """The confs' default network and the refine and fitting configs
+    build: the field class and widths, optimize_smpl / is_refine, the
+    SMPL learning rate and the frozen field, the loss weights, the
+    deformer version and the noise as JAX's ``build_avatar`` builds
+    them."""
+    import instantavatar_tpu.train.optim as jax_optim
+    from instantavatar_tpu.config.build import build_avatar as jax_build
+    cfg = load_config(CONFS, name, over)
+    check_ported(cfg)
+    seen = {}
+    real = jax_optim.make_optimizer
+
+    def spy(*a, **kw):
+        seen.update(kw)
+        return real(*a, **kw)
+    monkeypatch.setattr(jax_optim, "make_optimizer", spy)
+    jav = jax_build(cfg, steps_per_epoch=7)
+    av = build_avatar(cfg, steps_per_epoch=7, device="cpu")
+    assert type(av.field).__name__ == type(jav.field).__name__
+    if name == "SNARF_NGP":
+        assert av.field.grid == tuple(jav.field.grid)
+        assert av.field.table.shape == (16, 2 ** 19, 2)
+        assert av.field.sigma_dims == jav.field.sigma_dims
+    for k in ("optimize_smpl", "is_refine", "noise_steps", "loss_weights",
+              "_use_ngp_loss"):
+        assert getattr(av, k) == getattr(jav, k), k
+    spec = av.optimizer
+    assert (spec.lr, spec.smpl_lr, spec.freeze_field) == (
+        seen["lr"], seen["smpl_lr"], seen["freeze_field"])
+    assert av.deformer.version == jav.deformer.version
+    assert (av.deformer.version == 2) == name.endswith("fitting")
 
 
 def test_native_loader_and_unknown_targets_raise():

@@ -1,7 +1,8 @@
 """Tests of the port that need an NVIDIA GPU (marker ``cuda``): the hand
 CUDA kernel against its plain version on the card, the field's
-no-autograd rule for the kernel head, and one training step on the card
-against the same step on the CPU. They skip where there is no card. This
+no-autograd rule for the kernel head, one training step on the card
+against the same step on the CPU, and the NGP hash encode and field on
+the card against the CPU. They skip where there is no card. This
 file imports no jax; on a machine that has only PyTorch, skip the
 jax-loading conftest:
 
@@ -159,3 +160,44 @@ def test_training_step_on_card_matches_cpu(golden_runs, i):
     card, cpu = golden_runs
     gaps = golden_tool.step_gaps(card[i], cpu[i], ref="")
     assert golden_tool.gaps_within_tolerance(gaps), gaps
+
+
+def test_hash_encode_on_card_matches_cpu(cuda):
+    """``hash_encode`` at the default 16 x 2 @ 2^19 grid on the card
+    against the CPU on the same numpy-seeded points (0, 1, lattice
+    corners, outside [0, 1]): slots exactly, features 1e-6, the table's
+    and the points' gradients 1e-5 L2-relative (atomic adds sum in
+    another order); ``NGPField.apply`` 1e-5."""
+    import numpy as np
+    from instantavatar_torch.models import NGPField
+    from instantavatar_torch.ops import (HashGridConfig, hash_encode,
+                                         hash_slots, level_resolutions)
+    cfg = HashGridConfig()
+    g = np.random.default_rng(0)
+    x = g.uniform(-0.1, 1.1, (4096, 3)).astype(np.float32)
+    x[:16], x[16:32] = 0.0, 1.0
+    for i, r in enumerate(level_resolutions(cfg)):
+        x[32 + 32 * i:64 + 32 * i] = g.integers(0, r + 1, (32, 3)) / r
+    table = g.normal(0.0, 0.1, (16, cfg.table_size, 2)).astype(np.float32)
+    ct = g.normal(size=(4096, 32)).astype(np.float32)
+    res = []
+    for dev in (cuda, torch.device("cpu")):
+        xt = torch.as_tensor(x, device=dev).requires_grad_()
+        tt = torch.as_tensor(table, device=dev).requires_grad_()
+        f = hash_encode(tt, xt, cfg)
+        (f * torch.as_tensor(ct, device=dev)).sum().backward()
+        res.append([hash_slots(xt.detach(), cfg).cpu(), f.detach().cpu(),
+                    tt.grad.cpu(), xt.grad.cpu()])
+    (s0, f0, gt0, gx0), (s1, f1, gt1, gx1) = res
+    assert torch.equal(s0, s1)
+    torch.testing.assert_close(f0, f1, rtol=0, atol=1e-6)
+    for a, b in ((gt0, gt1), (gx0, gx1)):
+        assert float((a - b).norm() / b.norm()) <= 1e-5
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        field = NGPField(device=dev)
+        field.init(torch.Generator().manual_seed(0))
+        one = torch.ones(3, device=dev)
+        c, s = field.apply(torch.as_tensor(x, device=dev) - 0.5, 0 * one, one)
+        outs.append((c.detach().cpu(), s.detach().cpu()))
+    torch.testing.assert_close(outs[0], outs[1], rtol=1e-5, atol=1e-5)
