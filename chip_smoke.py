@@ -55,14 +55,31 @@ points a user calls, and checks it in phases:
      (plain PyTorch, not a TPU kernel) timed forward and forward plus
      backward on the largest call of a training step and of an animate
      frame, with its device launches per call and its byte bound, and the
-     committed JAX NGP golden frame (48 px), PSNR-bounded.
+     committed JAX NGP golden frame (48 px), PSNR-bounded;
+ 13. the in-the-wild demo (``bash/run-neuman-demo.sh``) on a copy of phase
+     11's sequence read as ``dataset=custom/video``: ``fit`` with
+     ``SNARF_NGP_fitting deformer=smpl`` at the conf's defaults (LPIPS with
+     the random VGG trunk, the depth term, SMPL lr 1e-4; every frame
+     exported, both patch terms finite, the SMPL parameters moved),
+     ``train --config-name demo sampler.dilate=8`` on the fitted poses
+     (per-frame smpl_init grids (F, 64, 64, 64), each partly occupied,
+     the seeded stack held by the 500-step latch, val PSNR above an
+     all-white frame's; ms/step, peak memory), ``novel_view`` and
+     ``animate`` at 540 px and ``animate`` at 67 px (the 1-pixel-block
+     render); ``nearest_vertex`` (against the 192-vertex toy body and a
+     7,008-vertex one) and the LPIPS VGG trunk timed beside their bounds
+     with their device launches per call (plain PyTorch, XLA in the JAX
+     package: not TPU kernels); the committed JAX SMPL-deformer golden
+     frame (48 px), PSNR-bounded; one 540 px SMPL-deformer frame with the
+     voxel-triplane field, which must launch the fused head.
 
 Any failed check exits non-zero. The last stdout line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``
 and the line before it lists the kernels, with the kernel's launches in
-each path (turntable, training, val render, and phase 11's CLI train run,
-Trainer validation, Trainer test, animate and novel_view; phase 12's NGP
-paths evaluate the fp32 head and launch no kernel). ``--profile DIR`` also
+each path (turntable, training, val render, phase 11's CLI train run,
+Trainer validation, Trainer test, animate and novel_view, and phase 13's
+SMPL-deformer voxel-triplane frame; the NGP paths of phases 12 and 13
+evaluate the fp32 head and launch no kernel). ``--profile DIR`` also
 writes torch.profiler summaries and traces of two steady-state frames and
 of one grid-update step plus three plain training steps to DIR.
 
@@ -111,6 +128,7 @@ NGP_GOLDEN_MIN_DB, FIT_EPOCHS = 35.0, 2
 NGP_TABLE_BYTES = 16 * 2 ** 19 * 2 * 4
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 BF16_FLOP_PER_S = 989e12       # dense bf16 tensor-core peak, same source
+FP32_FLOP_PER_S = 67e12        # fp32 outside the tensor cores, same source
 
 
 def check(cond: bool, msg: str) -> None:
@@ -656,27 +674,25 @@ def cli_phase(dev, work: Path) -> dict:
     return res
 
 
-def _count_encode(steps_only: bool = False):
-    """Record (rows, with autograd) of every ``hash_encode`` call the NGP
-    field makes (with ``steps_only``, inside ``AvatarModel.step`` only,
-    so a training run's validation renders are left out) until the
-    returned ``stop`` is called, and keep the points of the largest call;
-    wrappers around the attributes the field and the trainer read (no
-    device sync)."""
-    import instantavatar_torch.models.ngp as ngp_mod
+def _record_calls(module, attr: str, describe, steps_only: bool = False):
+    """Record ``describe(*args)`` -> (entry, points) of every call of
+    ``module.attr`` (the name its callers read; with ``steps_only``,
+    inside ``AvatarModel.step`` only, so a training run's validation
+    renders are left out) until the returned ``stop`` is called, and keep
+    the points of the largest call; wrappers, no device sync."""
     from instantavatar_torch.train import AvatarModel
-    real, real_step = ngp_mod.hash_encode, AvatarModel.step
-    calls: list[tuple[int, bool]] = []
+    real, real_step = getattr(module, attr), AvatarModel.step
+    calls: list = []
     largest: dict = {"x": None}
     inside = [not steps_only]
 
-    def counted(table, x, cfg, resolutions=None, **kw):
+    def counted(*a, **kw):
         if inside[0]:
-            calls.append((x.numel() // 3, torch.is_grad_enabled()
-                          and (table.requires_grad or x.requires_grad)))
-            if largest["x"] is None or x.numel() > largest["x"].numel():
-                largest["x"] = x.detach().reshape(-1, 3).clone()
-        return real(table, x, cfg, resolutions, **kw)
+            entry, x = describe(*a)
+            calls.append(entry)
+            if largest["x"] is None or x.shape[0] > largest["x"].shape[0]:
+                largest["x"] = x.detach().clone()
+        return real(*a, **kw)
 
     def step(self, *a, **kw):
         inside[0] = True
@@ -685,9 +701,35 @@ def _count_encode(steps_only: bool = False):
         return out
 
     def stop():
-        ngp_mod.hash_encode, AvatarModel.step = real, real_step
-    ngp_mod.hash_encode, AvatarModel.step = counted, step
+        setattr(module, attr, real)
+        AvatarModel.step = real_step
+    setattr(module, attr, counted)
+    AvatarModel.step = step
     return calls, largest, stop
+
+
+def _count_encode(steps_only: bool = False):
+    """``hash_encode`` calls of the NGP field: (rows, with autograd)."""
+    import instantavatar_torch.models.ngp as ngp_mod
+
+    def describe(table, x, *_):
+        return ((x.numel() // 3, torch.is_grad_enabled()
+                 and (table.requires_grad or x.requires_grad)),
+                x.reshape(-1, 3))
+    return _record_calls(ngp_mod, "hash_encode", describe, steps_only)
+
+
+def device_launches(fn) -> int:
+    """Device kernels one call of ``fn`` launches (torch.profiler), after
+    one warm call."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+    fn()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
 
 
 def encode_bound(rows: int, touched: int, backward: bool) -> float:
@@ -709,7 +751,6 @@ def encode_timing(dev, path_points: dict[str, torch.Tensor]) -> dict:
     points, as the field encoded them; random table): forward, and
     forward plus backward, median of 15 (CUDA events), its device
     launches per call (torch.profiler) and its bound."""
-    from torch.profiler import ProfilerActivity, profile as torch_profile
     from instantavatar_torch.ops import HashGridConfig, hash_encode, hash_slots
     cfg = HashGridConfig()
     g = np.random.default_rng(3)
@@ -736,12 +777,7 @@ def encode_timing(dev, path_points: dict[str, torch.Tensor]) -> dict:
         for name, fn, bwd in (("fwd", fwd, False), ("fwd_bwd", fwd_bwd, True)):
             for _ in range(3):
                 fn()
-            torch.cuda.synchronize()
-            with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
-                fn()
-                torch.cuda.synchronize()
-            launches = sum(1 for e in prof.events()
-                           if e.device_type == torch.autograd.DeviceType.CUDA)
+            launches = device_launches(fn)
             ms = statistics.median(cuda_ms(fn, 15))
             bound = encode_bound(rows, touched, bwd)
             res.update({f"{name}_ms": ms, f"{name}_launches": launches,
@@ -854,7 +890,7 @@ def ngp_phase(dev, work: Path) -> dict:
     shutil.copytree(seq, seq_fit)
     t0 = time.perf_counter()
     ftrainer, fstate, poses = fit.main(
-        ["--config-name", "SNARF_NGP_fitting", "model.opt.loss.opt.w_lpips=0",
+        ["--config-name", "SNARF_NGP_fitting",
          f"train.max_epochs={FIT_EPOCHS}",
          *cli_overrides(seq_fit, work / "fit_run")])
     torch.cuda.synchronize()
@@ -863,11 +899,13 @@ def ngp_phase(dev, work: Path) -> dict:
     res["fit_ms_per_step"] = 1e3 * sum(ftrainer.epoch_seconds) / fsteps
     exported = np.load(poses)
     losses = {k: float(v) for k, v in ftrainer.last_losses.items()}
-    print(f"[ngp] fit (SNARF_NGP_fitting, w_lpips=0): {fsteps} steps, "
+    print(f"[ngp] fit (SNARF_NGP_fitting at its defaults: w_lpips 0.01, "
+          f"random VGG trunk): {fsteps} steps, "
           f"{res['fit_ms_per_step']:.2f} ms/step, the whole CLI "
           f"{res['fit_cli_s']:.1f} s; exported "
           f"{exported['body_pose'].shape[0]} frames to poses/train.npz; "
           f"last step: loss {losses['loss']:.5f}, "
+          f"loss_lpips {losses.get('loss_lpips', float('nan')):.3e}, "
           f"loss_depth_reg {losses.get('loss_depth_reg', float('nan')):.3e}, "
           f"drift_transl {losses['drift_transl']:.3e}")
     check(exported["body_pose"].shape == (CLI_TRAIN, 69)
@@ -875,7 +913,8 @@ def ngp_phase(dev, work: Path) -> dict:
           "fit did not export every frame")
     check(all(math.isfinite(v) for v in losses.values()),
           "fit's losses are not finite")
-    check("loss_depth_reg" in losses, "fit did not log loss_depth_reg")
+    check("loss_depth_reg" in losses and "loss_lpips" in losses,
+          "fit did not log loss_depth_reg and loss_lpips")
 
     # -- animate ----------------------------------------------------------
     calls, anim_x, stop = _count_encode()
@@ -930,6 +969,289 @@ def ngp_phase(dev, work: Path) -> dict:
           f"{gold['psnr']:.1f} dB (bound {NGP_GOLDEN_MIN_DB}), max|alpha "
           f"diff| {np.abs(gold['alpha'] - gold['golden_alpha']).max():.3e}")
     check(gold["psnr"] >= NGP_GOLDEN_MIN_DB, "the NGP golden frame disagrees")
+    return res
+
+
+def knn_bound(M: int, V: int) -> tuple[float, str]:
+    """Least time (ms) of ``nearest_vertex`` on M points against V
+    vertices, and what sets it: 8 fp32 operations per (point, vertex)
+    pair (the 3-term dot, the |x|^2 - 2 x.v + |v|^2 expansion, the min)
+    at the fp32 peak, or 12 B in per point and per vertex and 12 B out
+    (distance, index) per point at the HBM rate."""
+    t_ops = 8.0 * M * V / FP32_FLOP_PER_S
+    t_bytes = (12.0 * (M + V) + 12.0 * M) / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def count_flops(fn) -> float:
+    """FLOPs of one call of ``fn`` (its matmuls and convolutions, forward
+    and backward, as torch.utils.flop_counter counts them: 2 per
+    multiply-add)."""
+    from torch.utils.flop_counter import FlopCounterMode
+    with FlopCounterMode(display=False) as counter:
+        fn()
+    return float(counter.get_total_flops())
+
+
+def op_timings(dev, fit_x: torch.Tensor, lpips_shape, grid_size: int
+               ) -> dict:
+    """Phase 13's op timings: ``nearest_vertex`` (plain PyTorch; XLA in
+    the JAX package) at the largest deform call of a fit step and at the
+    ``grid_size``^3 cells of a grid update, against the CLIs' 192-vertex toy body
+    and a 7,008-vertex toy body (SMPL's width: 6,890), and the LPIPS VGG
+    trunk forward and forward plus backward on the fit step's patch
+    stack; median of 15 (CUDA events), device launches per call, bound."""
+    from instantavatar_torch.body import toy_smpl_model
+    from instantavatar_torch.deformers import SMPLDeformer
+    from instantavatar_torch.losses import load_lpips
+    from instantavatar_torch.ops import nearest_vertex
+    out = {}
+    g = np.random.default_rng(5)
+    pose = [torch.as_tensor(a, dtype=torch.float32, device=dev) for a in (
+        np.zeros((1, 10)), 0.2 * g.standard_normal((1, 69)),
+        np.zeros((1, 3)), np.array([[0.0, 0.15, 3.0]]))]
+    G = grid_size
+    idx = (torch.arange(G, device=dev) + 0.5) / G
+    cells = torch.stack(torch.meshgrid(idx, idx, idx, indexing="ij"), -1) \
+        .reshape(-1, 3) * 2.5 - 1.25
+    for body_name, body in (
+            ("toy192", toy_smpl_model(device=dev)),
+            ("toy7008", toy_smpl_model(ring_size=16, bone_rings=18,
+                                       device=dev))):
+        d = SMPLDeformer(body)
+        verts = d.prepare(d.build_canonical(pose[0]), *pose).verts_smpl \
+            .detach()
+        for call, x in (("fit_step_call", fit_x), ("grid_cells", cells)):
+            M, V = x.shape[0], verts.shape[0]
+
+            def fn():
+                nearest_vertex(x, verts)
+            for _ in range(3):
+                fn()
+            ms = statistics.median(cuda_ms(fn, 15))
+            bound, by = knn_bound(M, V)
+            key = f"{body_name}_{call}"
+            out[key] = {"points": M, "verts": V, "ms": ms,
+                        "launches": device_launches(fn), "bound_ms": bound,
+                        "bound_by": by}
+            print(f"[knn] nearest_vertex {key}: {M} points x {V} vertices: "
+                  f"{ms:.4f} ms (median of 15, CUDA events), "
+                  f"{out[key]['launches']} device launches per call "
+                  f"(torch.profiler), bound {bound:.4f} ms set by {by}, "
+                  f"{100 * bound / ms:.1f}% of it")
+    mod = load_lpips("vgg", allow_random=True, device=dev)
+    a = torch.rand(lpips_shape, device=dev,
+                   generator=torch.Generator(device=dev).manual_seed(1))
+    b = torch.rand(lpips_shape, device=dev,
+                   generator=torch.Generator(device=dev).manual_seed(2))
+    p = a.clone().requires_grad_()
+
+    def fwd():
+        with torch.no_grad():
+            mod(a, b)
+
+    def fwd_bwd():
+        p.grad = None
+        mod(p, b).sum().backward()
+    for name, fn in (("fwd", fwd), ("fwd_bwd", fwd_bwd)):
+        for _ in range(3):
+            fn()
+        ms = statistics.median(cuda_ms(fn, 15))
+        # the trunk's weights and both images read once; the taps and the
+        # (N,) distances are negligible beside them
+        flops = count_flops(fn)
+        nbytes = 4.0 * (sum(t.numel() for t in mod.buffers())
+                        + 2 * a.numel())
+        t_ops, t_bytes = flops / FP32_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
+        bound = 1e3 * max(t_ops, t_bytes)
+        by = "operations" if t_ops >= t_bytes else "bytes"
+        out[f"lpips_{name}"] = {"shape": list(lpips_shape), "ms": ms,
+                                "launches": device_launches(fn),
+                                "bound_ms": bound, "bound_by": by,
+                                "gflop": flops / 1e9}
+        print(f"[lpips] VGG {name} on a {tuple(lpips_shape)} patch stack: "
+              f"{ms:.4f} ms (median of 15, CUDA events, TF32 off), "
+              f"{out[f'lpips_{name}']['launches']} device launches per call, "
+              f"{flops / 1e9:.3f} GFLOP, bound {bound:.4f} ms set by {by} "
+              f"(fp32 peak), {100 * bound / ms:.1f}% of it")
+    return out
+
+
+def demo_phase(dev, work: Path) -> dict:
+    """Phase 13: the in-the-wild demo (bash/run-neuman-demo.sh) in
+    process on a copy of phase 11's sequence as ``dataset=custom/video``:
+    fit with the SMPL deformer, train / novel_view / animate with the
+    demo conf (smpl_init), animate at 67 px; then the op timings, the
+    SMPL-deformer golden and one SMPL-deformer frame with the voxel
+    triplane field (the fused head). Returns the numbers and, for the
+    kernel line, the head's launches and rows on that frame."""
+    import shutil
+    from instantavatar_torch.cli import animate, fit, novel_view, train
+    from instantavatar_torch.utils.image_io import read_png
+    sys.path.insert(0, str(ROOT / "tools"))
+    import make_torch_smpl_golden as smpl_golden   # numpy + the port only
+    seq = work / "seq_demo"
+    shutil.copytree(work / "seq", seq)
+    data = ["dataset=custom/video"]
+    res = {}
+
+    # -- fit ------------------------------------------------------------------
+    import instantavatar_torch.deformers.smpl_deformer as sd_mod
+    calls, fit_x, stop = _record_calls(
+        sd_mod, "nearest_vertex",
+        lambda pts, verts, *_: ((pts.shape[0], verts.shape[0]), pts),
+        steps_only=True)
+    t0 = time.perf_counter()
+    ftr, fstate, poses = fit.main(
+        ["--config-name", "SNARF_NGP_fitting", *data, "deformer=smpl",
+         f"train.max_epochs={FIT_EPOCHS}",
+         *cli_overrides(seq, work / "demo_fit")])
+    torch.cuda.synchronize()
+    stop()
+    res["fit_cli_s"] = time.perf_counter() - t0
+    fsteps = FIT_EPOCHS * CLI_TRAIN
+    res["fit_ms_per_step"] = 1e3 * sum(ftr.epoch_seconds) / fsteps
+    res["fit_knn_calls"] = len(calls) / fsteps
+    exported = np.load(poses)
+    losses = {k: float(v) for k, v in ftr.last_losses.items()}
+    sp0 = ftr.dm.trainset.get_smpl_params()
+    drift = max(float(np.abs(exported[k] - sp0[k]).max())
+                for k in ("betas", "global_orient", "body_pose", "transl"))
+    print(f"[demo] fit (SNARF_NGP_fitting dataset=custom/video deformer=smpl, "
+          f"conf defaults: w_lpips 0.01 random VGG trunk, w_depth_reg 0.01, "
+          f"SMPL lr 1e-4): {fsteps} steps, {res['fit_ms_per_step']:.2f} "
+          f"ms/step, the whole CLI {res['fit_cli_s']:.1f} s; nearest_vertex "
+          f"{res['fit_knn_calls']:.1f} calls per step, the largest "
+          f"{fit_x['x'].shape[0]} points; last step: loss "
+          f"{losses['loss']:.5f}, loss_lpips "
+          f"{losses.get('loss_lpips', float('nan')):.4e}, loss_depth_reg "
+          f"{losses.get('loss_depth_reg', float('nan')):.4e}; the exported "
+          f"SMPL parameters moved by up to {drift:.3e}")
+    check(type(ftr.avatar.deformer).__name__ == "SMPLDeformer",
+          "fit deformer=smpl did not build the SMPL deformer")
+    check(exported["body_pose"].shape == (CLI_TRAIN, 69)
+          and exported["betas"].shape == (1, 10),
+          "demo fit did not export every frame")
+    check(all(math.isfinite(v) for v in losses.values())
+          and "loss_lpips" in losses and "loss_depth_reg" in losses,
+          "demo fit: loss_lpips / loss_depth_reg missing or not finite")
+    check(drift > 0, "demo fit did not move the SMPL parameters")
+
+    # -- train with the demo conf -------------------------------------------
+    run = work / "demo_run"
+    over = [*data, *cli_overrides(seq, run)]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer, state = train.main(
+        ["--config-name", "demo", "sampler.dilate=8",
+         f"train.max_epochs={CLI_EPOCHS}",
+         f"train.check_val_every_n_epoch={CLI_EPOCHS}", *over])
+    torch.cuda.synchronize()
+    res["train_cli_s"] = time.perf_counter() - t0
+    steps = CLI_EPOCHS * CLI_TRAIN
+    res["ms_per_step"] = 1e3 * sum(trainer.epoch_seconds) / steps
+    res["peak_mib"] = torch.cuda.max_memory_allocated() / 2 ** 20
+    occ = state.grid.occupancy
+    fracs = occ.reshape(occ.shape[0], -1).float().mean(-1).cpu()
+    seeded = trainer.init_state().grid
+    held = all(torch.equal(a, b) for a, b in zip(state.grid, seeded))
+    val_psnr = [json.loads(line)["value"] for line in
+                (run / "tensorboard" / "scalars.jsonl").read_text()
+                .splitlines() if '"val/psnr"' in line][-1]
+    gt = torch.as_tensor(trainer.dm.valset[0]["rgb"])
+    white_db = psnr(torch.ones_like(gt), gt)
+    res.update(val_psnr=val_psnr, white_psnr=white_db,
+               occupied_frac=[float(f) for f in fracs])
+    print(f"[demo] train (--config-name demo dataset=custom/video "
+          f"sampler.dilate=8, smpl_init): {steps} steps, "
+          f"{res['ms_per_step']:.2f} ms/step (a grid update every step); by "
+          f"epoch {[round(1e3 * s / CLI_TRAIN, 1) for s in trainer.epoch_seconds]}"
+          f" ms/step; peak memory {res['peak_mib']:.1f} MiB; the whole CLI "
+          f"{res['train_cli_s']:.1f} s; per-frame grids {tuple(occ.shape)}, "
+          f"occupied {float(fracs.min()):.4f}-{float(fracs.max()):.4f} of "
+          f"the cells, the seeded stack held: {held}; val PSNR "
+          f"{val_psnr:.2f} dB (an all-white frame: {white_db:.2f} dB)")
+    G = trainer.avatar.grid_size
+    check(tuple(occ.shape) == (CLI_TRAIN, G, G, G),
+          f"demo grids have shape {tuple(occ.shape)}")
+    check(bool(((fracs > 0) & (fracs < 0.5)).all()),
+          "a demo frame's grid is empty or more than half occupied")
+    check(held, "the 500-step latch did not hold the seeded grids")
+    check(val_psnr > white_db, "demo val PSNR does not beat an all-white frame")
+
+    # -- novel_view and animate at 540 px, animate at 67 px --------------------
+    demo = ["--config-name", "demo"]
+    pose_file = f"+pose_sequence={work / 'poses.npz'}"
+    for tag, cli, frames, ds, extra in (
+            ("novel_view", novel_view, CLI_TURNTABLE, 2,
+             [f"+n_frames={CLI_TURNTABLE}"]),
+            ("animation", animate, CLI_POSES, 2, [pose_file]),
+            ("animation", animate, CLI_POSES, 16, [pose_file])):
+        out = cli.main([*demo, f"+render_downscale={ds}", *extra, *over])
+        side = animate.make_camera(ds)[0]
+        key = f"{tag}_{side}px_ms_per_frame"
+        res[key] = 1e3 * out["render_s"] / out["frames"]
+        check(out["frames"] == frames and out["nonfinite_frames"] == 0,
+              f"demo {tag} at {side} px: non-finite or missing frames")
+        check(all(0.002 < c < 0.95 for c in out["alpha_coverage"]),
+              f"demo {tag} at {side} px: implausible alpha coverage "
+              f"{out['alpha_coverage']}")
+        png = read_png(run / tag / f"{frames - 1:04d}.png")
+        check(png.shape == (side, side, 4), f"demo {tag}: {png.shape}")
+        print(f"[demo] {tag} (--config-name demo): {frames} frames at "
+              f"{side}px, {res[key]:.2f} ms/frame rendered to host memory; "
+              f"alpha coverage {min(out['alpha_coverage']):.3f}-"
+              f"{max(out['alpha_coverage']):.3f}")
+
+    # -- op timings -------------------------------------------------------------
+    res["ops"] = op_timings(dev, fit_x["x"], (4, 32, 32, 3),
+                            trainer.avatar.grid_size)
+
+    # -- the SMPL-deformer golden ---------------------------------------------
+    gold = smpl_golden.render_golden(dev)
+    res["golden_db"] = gold["psnr"]
+    print(f"[smpl golden] {gold['image_hw']}px SMPLDeformer + NGPField "
+          f"frame, port on {torch.cuda.get_device_name(0)} vs JAX on CPU: "
+          f"rgb PSNR {gold['psnr']:.1f} dB (bound {GOLDEN_MIN_DB}), "
+          f"max|alpha diff| "
+          f"{np.abs(gold['alpha'] - gold['golden_alpha']).max():.3e}")
+    check(gold["psnr"] >= GOLDEN_MIN_DB, "the SMPL golden frame disagrees")
+
+    # -- one SMPL-deformer frame through the fused head ------------------------
+    from instantavatar_torch import convert
+    from instantavatar_torch.body import toy_smpl_model
+    from instantavatar_torch.data.rays import make_ray_basis
+    from instantavatar_torch.deformers import SMPLDeformer
+    from instantavatar_torch.models import VoxelTriplaneField
+    from instantavatar_torch.train import AvatarModel
+    body = toy_smpl_model(bone_rings=3, device=dev)
+    field = VoxelTriplaneField(voxel_res=64, plane_res=256, device=dev)
+    field.load_state_dict(convert.field_params_from_numpy(
+        convert.seeded_field_params(64, 256, 0, sigma_bias=100.0)))
+    av = AvatarModel(body, field, SMPLDeformer(body, threshold=0.05),
+                     grid_size=64, eval_grid="smpl_shell", shell_margin=0.08)
+    st = av.init(np.zeros(10, np.float32))
+    K = np.array([[2000.0, 0, W / 2], [0, 2000.0, H / 2], [0, 0, 1]])
+    batch = {"ray_basis": make_ray_basis(K, np.eye(4)),
+             "betas": np.zeros(10, np.float32),
+             "body_pose": np.zeros(69, np.float32),
+             "global_orient": np.array([0.0, 0.5, 0.0], np.float32),
+             "transl": np.array([0.0, 0.15, 5.0], np.float32)}
+    av.render_frame(st, batch, image_shape=(H, W))    # warm
+    t0 = time.perf_counter()
+    out, launches, rows = _counted(
+        lambda: av.render_frame(st, batch, image_shape=(H, W)))
+    res["smpl_voxel_frame_ms"] = (time.perf_counter() - t0) * 1e3
+    cover = float(out["alpha"].mean())
+    print(f"[demo] SMPL-deformer frame, network=voxel_triplane, {H}px: "
+          f"{res['smpl_voxel_frame_ms']:.2f} ms (shell grid and bake "
+          f"included), alpha coverage {cover:.3f}, fused-head launches "
+          f"{launches}, rows per launch {rows / max(launches, 1):.0f}")
+    check(launches > 0, "the SMPL-deformer frame never launched the CUDA head")
+    check(bool(torch.isfinite(out["rgb"]).all()) and 0.01 < cover < 0.95,
+          "the SMPL-deformer voxel-triplane frame is not plausible")
+    res["paths"] = {"smpl_voxel_frame": (launches, rows)}
     return res
 
 
@@ -1093,14 +1415,17 @@ def main(profile_dir: Path | None) -> int:
         cli = cli_phase(dev, Path(work))
         # -- 12. the confs' default network -------------------------------
         ngp_phase(dev, Path(work))
+        # -- 13. the in-the-wild demo -------------------------------------
+        demo = demo_phase(dev, Path(work))
 
     # -- 10. the kernel at each path's rows per launch ------------------------
+    paths = {**cli["paths"], **demo["paths"]}
     by_path = {"turntable": launches, "train": train["train_launches"],
                "val_render": train["val_launches"],
-               **{k: v[0] for k, v in cli["paths"].items()}}
+               **{k: v[0] for k, v in paths.items()}}
     rows_by_path = {"turntable": rows, "train": train["train_rows"],
                     "val_render": train["val_rows"],
-                    **{k: v[1] for k, v in cli["paths"].items()}}
+                    **{k: v[1] for k, v in paths.items()}}
     rows_per_launch = {k: rows_by_path[k] / n for k, n in by_path.items()
                        if n}
     ms_by_path = path_timings(dev, rows_per_launch)

@@ -6,10 +6,11 @@ Usage:
 
 Trains the field and the per-frame SMPL parameters together
 (``SNARF_NGP_fitting``: version-2 deformer gradients, ``ngp_loss`` with
-its depth term), then exports the optimized parameters to
+its LPIPS (VGG; a random trunk unless a trunk file is provided, see
+``losses/lpips.py``) and depth terms; ``deformer=smpl`` fits through the
+nearest-vertex ``SMPLDeformer``, as the in-the-wild demo does), then
+exports the optimized parameters, betas included, to
 ``<dataroot>/poses/train.npz``, where later ``train`` runs pick them up.
-The fitting conf's own ``w_lpips: 0.01`` raises until LPIPS is ported;
-``model.opt.loss.opt.w_lpips=0`` runs without it.
 """
 from __future__ import annotations
 

@@ -15,15 +15,12 @@ from typing import Any
 
 import torch
 
-from ..losses.nerf_loss import refuse_lpips
-
 __all__ = ["check_ported", "build_body_model", "build_field",
            "build_deformer", "build_avatar", "build_datamodule",
            "build_trainer"]
 
-# where each unported option waits (ROADMAP.md, "Open items")
-OFF_PATH_SLICE = ("ROADMAP.md open item 7: SMPLDeformer, smpl_init and the "
-                  "triplane/mlp fields")
+# where the unported fields wait (ROADMAP.md, "Open items")
+OFF_PATH_SLICE = "ROADMAP.md open item 7: the triplane and mlp fields"
 
 
 def _field_kind(network_cfg: Any) -> str:
@@ -50,23 +47,13 @@ def _is_smpl_deformer(deformer_cfg: Any) -> bool:
 
 
 def check_ported(cfg: Any) -> None:
-    """Raise ``NotImplementedError`` for every option of a composed config
-    that the port does not run yet."""
+    """Raise ``NotImplementedError`` for an option of a composed config
+    that the port does not run yet: the triplane and mlp networks."""
     kind = _field_kind(cfg.get("network", {}) or {})
     if kind not in ("ngp", "voxel_triplane"):
         raise NotImplementedError(
             f"network={kind} is not ported yet ({OFF_PATH_SLICE}); use "
             f"network=ngp or network=voxel_triplane")
-    if _is_smpl_deformer(cfg.get("deformer", {}) or {}):
-        raise NotImplementedError(
-            f"deformer=smpl (SMPLDeformer) is not ported yet "
-            f"({OFF_PATH_SLICE})")
-    mopt = cfg.model.opt
-    if bool(mopt.get("smpl_init", False)):
-        raise NotImplementedError(
-            f"model.opt.smpl_init is not ported yet ({OFF_PATH_SLICE})")
-    loss = mopt.get("loss", {}) or {}
-    refuse_lpips(float((loss.get("opt", {}) or {}).get("w_lpips", 0)))
 
 
 def build_body_model(deformer_cfg: Any, device: torch.device | str):
@@ -105,10 +92,11 @@ def build_field(network_cfg: Any, device: torch.device | str):
 
 
 def build_deformer(deformer_cfg: Any, body_model):
-    from ..deformers import SNARFDeformer
+    from ..deformers import SMPLDeformer, SNARFDeformer
     if _is_smpl_deformer(deformer_cfg):
-        raise NotImplementedError(
-            f"SMPLDeformer is not ported yet ({OFF_PATH_SLICE})")
+        return SMPLDeformer(body_model,
+                            threshold=float(deformer_cfg.get("threshold",
+                                                             0.05)))
     opt = deformer_cfg.get("opt", {}) or {}
     n_init = opt.get("n_init_active")
     return SNARFDeformer(
@@ -142,6 +130,12 @@ def build_avatar(cfg: Any, steps_per_epoch: int = 100, *,
     # static analog caps evaluated samples per ray
     k_cap = ropt.get("k_cap")
     loss_opt = (mopt.get("loss", {}) or {}).get("opt", {}) or {}
+    lpips_fn = None
+    if float(loss_opt.get("w_lpips", 0)) > 0:
+        # the reference's NGPLoss carries a frozen VGG-LPIPS; without a
+        # trunk file the trunk is random (a warning says so)
+        from ..losses.lpips import load_lpips
+        lpips_fn = load_lpips("vgg", allow_random=True, device=device)
     sched = mopt.get("scheduler", {}) or {}
     oopt = mopt.get("optimizer", {}) or {}
     opt_smpl = mopt.get("optimize_SMPL", {}) or {}
@@ -163,10 +157,12 @@ def build_avatar(cfg: Any, steps_per_epoch: int = 100, *,
         grid_size=int(ropt.get("grid_size", 64)),
         optimize_smpl=optimize_smpl,
         is_refine=is_refine,
+        smpl_init=bool(mopt.get("smpl_init", False)),
         train_warp_cache=bool(ropt.get("train_warp_cache", True)),
         # every configured loss weight goes through: AvatarModel raises on
         # a term it does not have rather than dropping it
         loss_weights={k: float(v) for k, v in loss_opt.items()},
+        lpips_fn=lpips_fn,
         optimizer=optimizer)
 
 

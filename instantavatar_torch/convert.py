@@ -6,9 +6,14 @@ same weights. ``seeded_field_params`` and ``seeded_ngp_params`` make such
 weights from a numpy seed, for runs where JAX is not installed (the smoke
 run on the GPU). ``train_state_from_numpy`` carries a whole JAX ``TrainState``
 across: field params (either field), Adam moments and count, grid, step,
-the canonical bake and the per-frame SMPL parameters;
+the canonical bake (SNARF's; the SMPL deformer's empty one becomes the
+bbox the normalization implies) and the per-frame SMPL parameters;
 ``checkpoint_from_jax_state`` writes one into a run directory as the
 port's checkpoint, so the port's CLIs render an avatar that JAX trained.
+``grid_state_from_numpy`` takes one grid or ``smpl_init``'s stacked
+per-frame grids. ``lpips_from_numpy`` builds the port's LPIPS from JAX's
+``LPIPSParams`` (its random trunk included), so both packages compute the
+same distance.
 """
 from __future__ import annotations
 
@@ -16,13 +21,14 @@ import numpy as np
 import torch
 
 from .deformers.fast_snarf import SnarfCanonical
+from .deformers.smpl_deformer import SMPLCanonical
 from .ops.grid_sample import pack_corners_3d
 from .render.density_grid import DensityGridState
 
 __all__ = ["field_params_from_numpy", "seeded_field_params",
            "seeded_ngp_params", "snarf_canonical_from_numpy",
            "grid_state_from_numpy", "train_state_from_numpy",
-           "checkpoint_from_jax_state"]
+           "checkpoint_from_jax_state", "lpips_from_numpy"]
 
 _FEATURES = ("voxel", "plane_xy", "plane_xz", "plane_yz", "table")
 _MLPS = ("sigma_w", "sigma_b", "color_w", "color_b")
@@ -129,7 +135,9 @@ def snarf_canonical_from_numpy(cano, *, device: torch.device | str
 
 def grid_state_from_numpy(grid, *, device: torch.device | str
                           ) -> DensityGridState:
-    """JAX ``DensityGridState`` fields (numpy) -> the port's grid state."""
+    """JAX ``DensityGridState`` fields (numpy) -> the port's grid state,
+    of any leading shape (``smpl_init``'s (F, G, G, G) stack, its aabb
+    (F, 2, 3))."""
     return DensityGridState(
         density_cached=torch.as_tensor(
             np.array(_get(grid, "density_cached"), np.float32),
@@ -196,12 +204,17 @@ def train_state_from_numpy(state, field, model, *,
                          [torch.as_tensor(np.array(a).reshape(p.shape))
                           for a, p in zip(adam.nu["smpl"], smpl)],
                          int(adam.count), group="smpl")
+    center = torch.as_tensor(np.array(state.center), device=device)
+    scale = torch.as_tensor(np.array(state.scale), device=device)
+    cano = (SMPLCanonical(bbox=torch.stack([center - scale / 2,
+                                            center + scale / 2]))
+            if len(state.deformer_cano) == 0   # JAX's SMPLDeformer: ()
+            else snarf_canonical_from_numpy(state.deformer_cano,
+                                            device=device))
     return TrainState(
-        deformer_cano=snarf_canonical_from_numpy(state.deformer_cano,
-                                                 device=device),
+        deformer_cano=cano,
         grid=grid_state_from_numpy(state.grid, device=device),
-        center=torch.as_tensor(np.array(state.center), device=device),
-        scale=torch.as_tensor(np.array(state.scale), device=device),
+        center=center, scale=scale,
         opt_state=opt, step=int(state.step), smpl=smpl)
 
 
@@ -216,3 +229,16 @@ def checkpoint_from_jax_state(state, field, model, path):
     tstate = train_state_from_numpy(state, field, model,
                                     device=next(field.parameters()).device)
     return save_checkpoint(Path(path) / "checkpoints", tstate, field)
+
+
+def lpips_from_numpy(params, net: str, *, numerically_matched: bool = False,
+                     device: torch.device | str = "cpu"):
+    """A numpy copy of JAX's ``LPIPSParams`` (``convs``: ((w HWIO, b),
+    ...), ``heads``: five (C,)) -> the port's ``LPIPS`` on ``device``, the
+    convolutions in OIHW."""
+    from .losses.lpips import LPIPS
+    convs = [(np.asarray(w, np.float32).transpose(3, 2, 0, 1),
+              np.asarray(b, np.float32)) for w, b in _get(params, "convs")]
+    heads = [np.asarray(h, np.float32) for h in _get(params, "heads")]
+    return LPIPS(net, convs, heads,
+                 numerically_matched=numerically_matched).to(device)

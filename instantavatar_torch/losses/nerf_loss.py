@@ -6,25 +6,18 @@ mask-MSE + w_reg * hard-surface terms (-log(e^-x + e^(x-1)) + 0.313262)
 on the accumulated alpha and on the per-sample weights. The weights term
 averages over every (ray, slot) of the marcher's static layout, empty
 slots included. ``ngp_loss`` adds the patch-only terms when the rgb is a
-patch stack (P, S, S, 3): the within-patch depth regularizer, and LPIPS,
-which is not ported (it raises until the LPIPS trunk is in the repo).
+patch stack (P, S, S, 3): LPIPS (the injected ``lpips_fn``, see
+``losses/lpips.py``) and the within-patch depth regularizer.
 """
 from __future__ import annotations
 
+from typing import Callable
+
 import torch
 
-__all__ = ["hard_surface_reg", "nerf_loss", "ngp_loss", "refuse_lpips"]
+__all__ = ["hard_surface_reg", "nerf_loss", "ngp_loss"]
 
 _OFFSET = 0.313262
-LPIPS_SLICE = "ROADMAP.md open item 4: ngp_loss/LPIPS"
-
-
-def refuse_lpips(w_lpips: float) -> None:
-    """Raise for a positive LPIPS weight: the term is not ported."""
-    if w_lpips > 0:
-        raise NotImplementedError(
-            f"w_lpips > 0: the LPIPS term of ngp_loss is not ported yet "
-            f"({LPIPS_SLICE})")
 
 
 def hard_surface_reg(x: torch.Tensor) -> torch.Tensor:
@@ -49,14 +42,22 @@ def nerf_loss(predicts: dict, targets: dict, *, w_rgb: float = 1.0,
 
 def ngp_loss(predicts: dict, targets: dict, *, w_rgb: float = 1.0,
              w_alpha: float = 0.1, w_reg: float = 0.1, w_lpips: float = 0.0,
-             w_depth_reg: float = 0.0
+             w_depth_reg: float = 0.0,
+             lpips_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+             | None = None
              ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
-    """``nerf_loss`` plus, on a patch stack, w_depth_reg * mean(alpha *
-    |depth - the patch's alpha-weighted mean depth|)."""
-    refuse_lpips(w_lpips)
+    """``nerf_loss`` plus, on a patch stack, w_lpips * sum(lpips_fn(clip(
+    rgb, 0, 1), target rgb)) over the patches (when ``lpips_fn`` is given)
+    and w_depth_reg * mean(alpha * |depth - the patch's alpha-weighted
+    mean depth|)."""
     total, losses = nerf_loss(predicts, targets, w_rgb=w_rgb,
                               w_alpha=w_alpha, w_reg=w_reg)
-    if predicts["rgb"].ndim == 4 and w_depth_reg > 0:
+    is_patch = predicts["rgb"].ndim == 4
+    if is_patch and w_lpips > 0 and lpips_fn is not None:
+        lp = lpips_fn(predicts["rgb"].clamp(0.0, 1.0), targets["rgb"]).sum()
+        losses["loss_lpips"] = lp
+        total = total + w_lpips * lp
+    if is_patch and w_depth_reg > 0:
         alpha, depth = predicts["alpha"], predicts["depth"]   # (P, S, S)
         depth_avg = ((depth * alpha).sum(dim=(-1, -2))
                      / (alpha.sum(dim=(-1, -2)) + 1e-3))

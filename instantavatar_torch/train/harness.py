@@ -12,7 +12,10 @@ Checkpoints keep the JAX layout, ``checkpoints/step_%08d/`` with a
 tensors (``state.pt``): the field's ``state_dict``, the Adam moments (per
 group) and counts, the density grid, the SNARF canonical bake, the input
 normalization, the step and, when the model optimizes them, the per-frame
-SMPL parameters. ``graft`` takes a train run's field, grid, bake and
+SMPL parameters. The grid is the stacked per-frame grids with
+``smpl_init``; the canonical state is the deformer's own type
+(``SnarfCanonical`` or ``SMPLCanonical``) and comes back as the type the
+target state holds. ``graft`` takes a train run's field, grid, bake and
 normalization into a fresh state (the refine flow). Scalars go to
 ``tensorboard/scalars.jsonl`` under the JAX package's TensorBoard tags;
 images go out as PNGs.
@@ -34,7 +37,6 @@ from typing import Any
 import numpy as np
 import torch
 
-from ..deformers.fast_snarf import SnarfCanonical
 from ..render.density_grid import DensityGridState
 from ..utils.image_io import jet, write_png
 from .model import AvatarModel, RenderSession, TrainState
@@ -124,7 +126,7 @@ def restore_checkpoint(path: str | Path, target: TrainState,
                 v.copy_(ck["smpl"][k])
     return target._replace(
         grid=DensityGridState(**ck["grid"]),
-        deformer_cano=SnarfCanonical(**ck["deformer_cano"]),
+        deformer_cano=type(target.deformer_cano)(**ck["deformer_cano"]),
         center=ck["center"], scale=ck["scale"], step=ck["step"])
 
 
@@ -136,7 +138,7 @@ def graft(path: str | Path, target: TrainState, field) -> TrainState:
     ck = _load(path, target, field)
     return target._replace(
         grid=DensityGridState(**ck["grid"]),
-        deformer_cano=SnarfCanonical(**ck["deformer_cano"]),
+        deformer_cano=type(target.deformer_cano)(**ck["deformer_cano"]),
         center=ck["center"], scale=ck["scale"])
 
 
@@ -194,14 +196,16 @@ class Trainer:
     def init_state(self) -> TrainState:
         """A fresh state: field params from a generator seeded ``seed``,
         the canonical bake from the training split's betas and, when the
-        model optimizes SMPL parameters, those of the training split."""
+        model optimizes SMPL parameters or seeds per-frame grids from them
+        (``smpl_init``), those of the training split."""
         gen = torch.Generator(device=self.avatar.device).manual_seed(
             self.seed)
         trainset = self.dm.trainset
         return self.avatar.init(
             trainset.smpl_params["betas"], generator=gen,
             smpl_params=(trainset.get_smpl_params()
-                         if self.avatar.optimize_smpl else None))
+                         if self.avatar.optimize_smpl or self.avatar.smpl_init
+                         else None))
 
     # -- fit ------------------------------------------------------------------
 

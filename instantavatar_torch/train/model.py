@@ -9,8 +9,11 @@ density sweep updates the occupancy grid and adds the occupancy
 regularizer; the render marches (N, k_cap) slots through the cached-search
 field closure (``train_warp_cache``: a per-cell warp-cache bake on the
 first ``cell_budget`` occupied cells in flat order, one cached-Newton step
-and the pose correction per sample); then ``nerf_loss`` (or ``ngp_loss``
-when the config asks for its depth term), autograd and the grouped Adam.
+and the pose correction per sample; with the SMPL deformer, its
+nearest-vertex warp per sample); then ``nerf_loss`` (or ``ngp_loss`` when
+the config asks for its LPIPS or depth term), autograd and the grouped
+Adam. With ``smpl_init`` (the in-the-wild demo) each frame has its own
+grid, seeded from its posed body, gathered and updated every step.
 The field (``VoxelTriplaneField`` or ``NGPField``) keeps its parameters in
 its module, updated in place; the step's random draws (``StepDraws``) come
 from a ``torch.Generator`` or are passed in. Training evaluates the head
@@ -25,7 +28,8 @@ optimizer's ``smpl`` group; every step, grid update and frame render
 swaps the batch frame's pose for them (``_resolve_batch``, by ``idx``).
 Pose gradients reach them through ``prepare`` (bone transforms, the
 voxel_J bake), the world->SMPL ray transform and the deformer's
-``_grad_correct``; the Broyden search records no graph, as in JAX. The
+``_grad_correct`` (SNARF), or through the SMPL deformer's T_inv and
+posed vertices; the Broyden search records no graph, as in JAX. The
 refine flow (``is_refine``) also turns the sigma noise and the occupancy
 regularizer off, and its optimizer freezes the field.
 
@@ -38,7 +42,8 @@ CLIs build it, in five stages:
   4. packed warp-cache bake on the occupied grid cells (Broyden on cell
      centers, candidates ordered by baked sigma), reused across frames
      that share (field params, betas, body pose) via ``RenderSession``;
-  2. coarse prepass on the p x p block lattice: strides whose cell has a
+  2. coarse prepass on the p x p block lattice (p = 3 or 2, whichever
+     divides the image, else 1: every pixel ray): strides whose cell has a
      valid cache row, cut once the estimated transmittance from the baked
      cell sigma falls below ``term_T``;
   3'. flat selection: every kept (block, stride) pair, in one ray-major,
@@ -66,10 +71,11 @@ import torch
 from ..body import SMPLModel
 from ..deformers.fast_snarf import SNARFDeformer, SnarfCanonical
 from ..deformers.packed_cache import select_candidate
-from ..losses.nerf_loss import nerf_loss, ngp_loss, refuse_lpips
+from ..deformers.smpl_deformer import SMPLCanonical, SMPLDeformer
+from ..losses.nerf_loss import nerf_loss, ngp_loss
 from ..models.ngp import NGPField, bbox_center_scale
 from ..models.voxel_triplane import VoxelTriplaneField
-from ..ops.knn import knn_points
+from ..ops.knn import nearest_vertex
 from ..render.compositing import composite_stream
 from ..render.density_grid import (DensityGridState, initialize_grid,
                                    make_grid_state, occupancy_lookup,
@@ -89,8 +95,8 @@ class TrainState(NamedTuple):
     """Per-subject state (the JAX ``TrainState``; the field's parameters
     live in its module). Rendering reads the first four fields and
     ``smpl``."""
-    deformer_cano: SnarfCanonical
-    grid: DensityGridState
+    deformer_cano: SnarfCanonical | SMPLCanonical
+    grid: DensityGridState   # with smpl_init: one per frame, stacked
     center: torch.Tensor   # (3,) field input normalization
     scale: torch.Tensor    # (3,)
     opt_state: GroupedAdam | None = None  # bound to the field and smpl
@@ -149,7 +155,7 @@ class AvatarModel:
 
     def __init__(self, body_model: SMPLModel,
                  field: VoxelTriplaneField | NGPField,
-                 deformer: SNARFDeformer,
+                 deformer: SNARFDeformer | SMPLDeformer,
                  *,
                  n_steps: int = 256,
                  k_cap: int | None = 64,
@@ -158,6 +164,7 @@ class AvatarModel:
                  noise_steps: int = 1000,
                  optimize_smpl: bool = False,
                  is_refine: bool = False,
+                 smpl_init: bool = False,
                  eval_grid: str = "density",
                  shell_margin: float = 0.12,
                  use_warp_cache: bool = True,
@@ -171,6 +178,7 @@ class AvatarModel:
                  prepass_steps: int = 96,
                  prepass_block: int | None = None,
                  loss_weights: dict[str, float] | None = None,
+                 lpips_fn=None,
                  optimizer: OptimizerSpec | None = None):
         """Knobs as in the JAX ``AvatarModel``.
 
@@ -179,10 +187,13 @@ class AvatarModel:
         ``noise_steps`` (sigma noise std 1 before this step, 0 disables),
         ``optimize_smpl`` (per-frame SMPL parameters in the state, see
         ``init``), ``is_refine`` (no sigma noise, no occupancy
-        regularizer), ``train_warp_cache``, ``cell_budget`` (occupied
-        cells the cached search bakes, default max(G^3 / 8, 1024)),
-        ``loss_weights`` (w_rgb, w_alpha, w_reg, and ngp_loss's w_depth_reg;
-        w_lpips > 0 raises) and ``optimizer`` (default: optax.adam(1e-2)'s
+        regularizer), ``smpl_init`` (per-frame grids seeded from the posed
+        body and updated every step, see ``init``), ``train_warp_cache``
+        (with a deformer that has ``_grad_correct``), ``cell_budget``
+        (occupied cells the cached search bakes, default max(G^3 / 8,
+        1024)), ``loss_weights`` (w_rgb, w_alpha, w_reg, and ngp_loss's
+        w_lpips and w_depth_reg), ``lpips_fn`` (the LPIPS module, needed
+        when w_lpips > 0) and ``optimizer`` (default: optax.adam(1e-2)'s
         settings). The flat render reads ``grid_size``, ``eval_grid``,
         ``shell_margin``, ``cache_n_cand``, ``term_T``, ``prepass_steps`` and
         ``prepass_block``. ``samples_per_ray`` and ``eval_n_steps`` sized the
@@ -200,7 +211,8 @@ class AvatarModel:
         self.n_steps = n_steps
         self.k_cap = k_cap
         self.grid_size = grid_size
-        self.grid_update_interval = grid_update_interval
+        self.smpl_init = smpl_init
+        self.grid_update_interval = 1 if smpl_init else grid_update_interval
         # refine mode disables the sigma noise
         self.noise_steps = 0 if is_refine else noise_steps
         self.optimize_smpl = optimize_smpl
@@ -220,9 +232,13 @@ class AvatarModel:
             raise ValueError(f"unknown loss weight(s) {sorted(unknown)}; "
                              f"supported: {sorted(known)}")
         self.loss_weights.update(loss_weights or {})
-        refuse_lpips(self.loss_weights.get("w_lpips", 0))
-        # ngp_loss (its depth term) when the config asks for it
-        self._use_ngp_loss = self.loss_weights.get("w_depth_reg", 0) > 0
+        # ngp_loss (its patch terms) when the config asks for them
+        self._use_ngp_loss = (self.loss_weights.get("w_lpips", 0) > 0
+                              or self.loss_weights.get("w_depth_reg", 0) > 0)
+        self.lpips_fn = lpips_fn
+        if self.loss_weights.get("w_lpips", 0) > 0 and lpips_fn is None:
+            raise ValueError("w_lpips > 0 requires an lpips_fn "
+                             "(losses.lpips.load_lpips)")
         self.optimizer = optimizer or make_optimizer(
             1e-2, betas=(0.9, 0.999), eps=1e-8, skip_nonfinite=0)
 
@@ -240,9 +256,16 @@ class AvatarModel:
         ``optimize_smpl``, to fresh SMPL leaves made from ``smpl_params``
         (arrays or tensors: betas, global_orient, body_pose, transl; the
         dataset's ``get_smpl_params()``). The grid starts fully occupied
-        over ``WORLD_AABB``."""
+        over ``WORLD_AABB``; with ``smpl_init`` it is one grid per frame of
+        ``smpl_params``, seeded from that frame's posed body
+        (``_smpl_init_grids``)."""
         if self.optimize_smpl and smpl_params is None:
             raise ValueError("optimize_smpl=True needs initial smpl_params")
+        if self.smpl_init and smpl_params is None:
+            raise ValueError("smpl_init=True needs smpl_params (all "
+                             "frames' poses seed the per-frame grids)")
+        if isinstance(smpl_params, SMPLParams):
+            smpl_params = smpl_params._asdict()
         if generator is not None:
             self.field.init(generator)
         cano = self.deformer.build_canonical(
@@ -250,23 +273,61 @@ class AvatarModel:
         center, scale = bbox_center_scale(cano.bbox)
         grid = make_grid_state(WORLD_AABB, self.grid_size, device=self.device)
         grid = grid._replace(occupancy=torch.ones_like(grid.occupancy))
-        smpl = (SMPLParams.from_arrays(
-            smpl_params._asdict() if isinstance(smpl_params, SMPLParams)
-            else smpl_params, device=self.device)
-            if self.optimize_smpl else None)
+        if self.smpl_init:
+            grid = self._smpl_init_grids(cano, smpl_params, grid)
+        smpl = (SMPLParams.from_arrays(smpl_params, device=self.device)
+                if self.optimize_smpl else None)
         return TrainState(deformer_cano=cano, grid=grid, center=center,
                           scale=scale, opt_state=self.optimizer.init(
                               {"field": list(self.field.parameters()),
                                "smpl": list(smpl or ())}), smpl=smpl)
 
+    @torch.no_grad()
+    def _smpl_init_grids(self, cano, smpl_params: dict,
+                         template: DensityGridState) -> DensityGridState:
+        """Per-frame occupancy grids over the template's box, stacked on a
+        leading frame axis: each frame's posed-body shell (``_shell_grid``
+        with a 2 cm margin)."""
+        betas = _as_tensor(smpl_params["betas"], self.device).reshape(1, -1)
+        pose = {k: _as_tensor(smpl_params[k], self.device)
+                for k in ("body_pose", "global_orient", "transl")}
+        grids = [self._shell_grid(self.deformer.prepare(
+            cano, betas, *(pose[k][f].reshape(1, -1)
+                           for k in ("body_pose", "global_orient", "transl"))
+        ).verts_smpl, template.aabb, 0.02)
+            for f in range(pose["body_pose"].shape[0])]
+        return DensityGridState(*(torch.stack(x) for x in zip(*grids)))
+
+    def _shell_grid(self, verts: torch.Tensor, aabb: torch.Tensor,
+                    margin: float) -> DensityGridState:
+        """The grid over ``aabb`` whose cells lie within max(``margin``,
+        half a cell diagonal) of a vertex, ``density_cached`` 460 there
+        (the reference's -log(1 - occ) * 100 seeding). Cells are listed in
+        (x, y, z) row-major order, the first axis first, as in JAX."""
+        G = self.grid_size
+        idx = (torch.arange(G, device=aabb.device) + 0.5) / G
+        xx, yy, zz = torch.meshgrid(idx, idx, idx, indexing="ij")
+        cells = (torch.stack([xx, yy, zz], -1).reshape(-1, 3)
+                 * (aabb[1] - aabb[0]) + aabb[0])
+        d2, _ = nearest_vertex(cells, verts)
+        thr = max(margin, 0.5 * float(torch.linalg.norm((aabb[1] - aabb[0])
+                                                        / G)))
+        occ = (d2 < thr ** 2).reshape(G, G, G)
+        return DensityGridState(
+            density_cached=torch.where(occ, 100.0 * 4.6, 0.0),
+            occupancy=occ, aabb=aabb)
+
     def _resolve_batch(self, state: TrainState, batch):
         """The batch with its frame's optimized SMPL pose (global_orient,
-        body_pose, transl looked up by ``idx``) when the state carries
-        SMPL parameters; else the batch itself."""
+        body_pose, transl looked up by ``idx``; with the SMPL deformer the
+        betas too, as the reference does) when the state carries SMPL
+        parameters; else the batch itself."""
         if not self.optimize_smpl or state.smpl is None:
             return batch
+        keep_betas = not isinstance(self.deformer, SMPLDeformer)
         return {**batch, **{k: v for k, v in lookup_frame(
-            state.smpl, batch["idx"]).items() if k != "betas"}}
+            state.smpl, batch["idx"]).items()
+            if not (keep_betas and k == "betas")}}
 
     def _prepare(self, cano, batch):
         dev = self.device
@@ -288,8 +349,10 @@ class AvatarModel:
         """Training render (the JAX ``eval_mode=False`` branch) of one ray
         bundle (``rays_o``/``rays_d`` of any leading shape, flat or patch
         stacks) through the dense marcher, the head evaluated through
-        ``_mlp`` and, with ``train_warp_cache`` and a grid, the
-        cached-search closure. Near/far come from the world->SMPL ray
+        ``_mlp`` and, with ``train_warp_cache``, a grid and a deformer with
+        ``_grad_correct`` (SNARF), the cached-search closure; else the
+        deformer's per-sample closure (the SMPL deformer's nearest-vertex
+        warp). Near/far come from the world->SMPL ray
         transform; batch near/far are overwritten by it, as in JAX."""
         cano = state.deformer_cano
         if dstate is None:
@@ -302,7 +365,8 @@ class AvatarModel:
         bg = batch.get("bg_color")
         bg = None if bg is None else _as_tensor(bg, dev).reshape(-1, 3)
         net = self._net(state, "mlp")
-        if self.train_warp_cache and grid is not None:
+        if (self.train_warp_cache and grid is not None
+                and hasattr(self.deformer, "_grad_correct")):
             field_fn = self._make_train_cache_field_fn(net, state, dstate,
                                                        grid)
         else:
@@ -402,18 +466,27 @@ class AvatarModel:
                          ) -> tuple[dict, DensityGridState]:
         """Loss and gradients of one step: the gradients land in the
         ``.grad`` of the field parameters and of the SMPL leaves; returns
-        (loss components, the grid the step leaves)."""
+        (loss components, the grid the step leaves). With ``smpl_init`` the
+        step works on the batch frame's grid, gathered from the stack by
+        ``idx``; the update keeps the seeded grid for the first 500 steps
+        and otherwise writes its result back into a copy of the stack."""
         for p in list(self.field.parameters()) + list(state.smpl or ()):
             p.grad = None
         dev = self.device
         b = {k: _as_tensor(batch[k], dev) for k in ("rgb", "alpha")}
         rbatch = self._resolve_batch(state, batch)
         dstate = self._prepare(state.deformer_cano, rbatch)
-        new_grid, reg = state.grid, torch.zeros((), device=dev)
+        cur_grid = state.grid
+        if self.smpl_init:
+            fidx = torch.as_tensor(batch["idx"], device=dev).long().reshape(1)
+            cur_grid = DensityGridState(*(x[fidx][0] for x in state.grid))
+        new_grid, reg = cur_grid, torch.zeros((), device=dev)
         if with_grid_update:
             new_grid, density_norm, old_occ = update_grid(
-                state.grid, self._density_fn(state, dstate),
+                cur_grid, self._density_fn(state, dstate),
                 draws.grid_jitter)
+            if self.smpl_init and state.step < 500:
+                new_grid = cur_grid   # the seeded grid holds (the latch)
             # first 500 steps: judge against the fresh grid
             reg = occupancy_regularizer(
                 density_norm,
@@ -424,7 +497,8 @@ class AvatarModel:
         predicts = self.render(state, rbatch, dstate=dstate, grid=new_grid,
                                draws=draws, noise_std=noise_std)
         if self._use_ngp_loss:
-            total, losses = ngp_loss(predicts, b, **self.loss_weights)
+            total, losses = ngp_loss(predicts, b, lpips_fn=self.lpips_fn,
+                                     **self.loss_weights)
         else:
             total, losses = nerf_loss(predicts, b, **{
                 k: self.loss_weights[k] for k in ("w_rgb", "w_alpha",
@@ -440,6 +514,11 @@ class AvatarModel:
             for k in ("global_orient", "body_pose", "transl"):
                 losses[f"drift_{k}"] = (rbatch[k].detach() - _as_tensor(
                     batch[k], dev)).abs().mean()
+        if self.smpl_init:
+            new_grid = (state.grid if new_grid is cur_grid
+                        else DensityGridState(*(
+                            s.index_copy(0, fidx, g[None])
+                            for s, g in zip(state.grid, new_grid))))
         return losses, new_grid
 
     def apply_grads(self, state: TrainState, new_grid: DensityGridState
@@ -477,19 +556,9 @@ class AvatarModel:
         forward-warped voxel's AABB."""
         dstate = self._prepare(state.deformer_cano,
                                self._resolve_batch(state, batch))
-        aabb = self.deformer.bbox_deformed(dstate)
-        G = self.grid_size
-        idx = (torch.arange(G, device=aabb.device) + 0.5) / G
-        xx, yy, zz = torch.meshgrid(idx, idx, idx, indexing="ij")
-        cells = (torch.stack([xx, yy, zz], -1).reshape(-1, 3)
-                 * (aabb[1] - aabb[0]) + aabb[0])
-        d2, _ = knn_points(cells, dstate.verts_smpl, k=1, chunk=32768)
-        thr = max(self.shell_margin,
-                  0.5 * float(torch.linalg.norm((aabb[1] - aabb[0]) / G)))
-        occ = (d2[:, 0] < thr ** 2).reshape(G, G, G)
-        return DensityGridState(
-            density_cached=torch.where(occ, 100.0 * 4.6, 0.0),
-            occupancy=occ, aabb=aabb)
+        return self._shell_grid(dstate.verts_smpl,
+                                self.deformer.bbox_deformed(dstate),
+                                self.shell_margin)
 
     @torch.no_grad()
     def build_test_grid(self, state: TrainState, batch,
@@ -551,13 +620,13 @@ class AvatarModel:
                 content(batch["betas"]), content(batch["body_pose"]))
 
     def _block_size(self, H: int, W: int) -> int:
+        """The prepass block: ``prepass_block``, else 3 or 2, whichever
+        divides both sides; else 1 (JAX's ``prepass_shape = None``: the
+        prepass and the stream run on every pixel ray)."""
         for p in ((self.prepass_block,) if self.prepass_block else (3, 2)):
             if H % p == 0 and W % p == 0:
                 return p
-        raise ValueError(f"image {H}x{W} is not divisible into "
-                         f"{self.prepass_block or '3 or 2'}-pixel blocks; "
-                         f"the render for other sizes is not ported yet "
-                         f"(ROADMAP.md open item 3: the no-prepass render)")
+        return 1
 
     @torch.no_grad()
     def render_stream(self, state: TrainState, batch, grid: DensityGridState,

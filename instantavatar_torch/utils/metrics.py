@@ -4,8 +4,10 @@ Port of ``instantavatar_tpu/utils/metrics.py``: PSNR (data range 1) and
 SSIM (Wang et al. with the torchmetrics defaults: 11 x 11 Gaussian window,
 sigma 1.5, k1 0.01, k2 0.03, valid windows only) in fp32 on the inputs'
 device. The SSIM convolution runs with TF32 off, which on the card would
-otherwise round its products to 10 mantissa bits. LPIPS is not ported:
-``Evaluator`` reports it as skipped, with the reason.
+otherwise round its products to 10 mantissa bits. ``Evaluator`` adds the
+LPIPS-alex column only when its weights are the published ones
+(``losses/lpips.py``: a trunk file is needed); otherwise it reports the
+column as skipped, with the reason, as the JAX evaluator does.
 """
 from __future__ import annotations
 
@@ -16,9 +18,6 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["psnr", "ssim", "Evaluator"]
-
-LPIPS_SKIP = ("LPIPS is not ported (ROADMAP.md open item 4: ngp_loss/LPIPS;"
-              " its trunk weights are not in the repository)")
 
 
 def psnr(pred: torch.Tensor, target: torch.Tensor,
@@ -62,22 +61,52 @@ def ssim(pred: torch.Tensor, target: torch.Tensor, data_range: float = 1.0,
 
 
 class Evaluator:
-    """PSNR/SSIM over (H, W, C) or (N, H, W, C) images in [0, 1] (numpy or
-    tensors); predictions are clamped to <= 1 as the reference does. Runs
-    on ``device`` (default: the prediction's). LPIPS is skipped;
-    ``lpips_skip_reason`` says why (the harness writes it into
-    results.txt)."""
+    """PSNR/SSIM/LPIPS over (H, W, C) or (N, H, W, C) images in [0, 1]
+    (numpy or tensors); predictions are clamped to <= 1 as the reference
+    does. Runs on ``device`` (default: the prediction's).
 
-    def __init__(self, device: torch.device | str | None = None):
+    LPIPS is ``lpips_fn`` when given, else ``load_lpips("alex")``, and
+    runs only with numerically matched weights; otherwise it is skipped
+    with a warning and ``lpips_skip_reason`` says why (the harness writes
+    it into results.txt)."""
+
+    def __init__(self, device: torch.device | str | None = None,
+                 lpips_fn=None):
         self.device = device
-        self.lpips_skip_reason = LPIPS_SKIP
-        warnings.warn(f"Evaluator: the LPIPS column will be omitted: "
-                      f"{LPIPS_SKIP}", stacklevel=2)
+        self.lpips_skip_reason = None
+        if lpips_fn is None:
+            from ..losses.lpips import load_lpips
+            try:
+                lpips_fn = load_lpips("alex", device=device or "cpu")
+                if not lpips_fn.numerically_matched:
+                    self.lpips_skip_reason = (
+                        "LPIPS weights are not numerically matched "
+                        "(random/partial trunk)")
+                    lpips_fn = None
+            except FileNotFoundError as e:
+                self.lpips_skip_reason = str(e)
+                lpips_fn = None
+            except Exception as e:   # a malformed weights file
+                self.lpips_skip_reason = f"LPIPS init failed: {e!r}"
+                lpips_fn = None
+            if lpips_fn is None:
+                warnings.warn(
+                    "Evaluator: LPIPS column will be OMITTED — "
+                    f"{self.lpips_skip_reason}. Provide a torchvision "
+                    "alexnet state dict via INSTANTAVATAR_LPIPS_WEIGHTS to "
+                    "enable it.", stacklevel=2)
+        self.lpips_fn = lpips_fn
 
     def __call__(self, pred, target) -> dict[str, float]:
         def t(a):
             a = a if torch.is_tensor(a) else torch.as_tensor(np.asarray(a))
             return a.to(self.device or a.device, torch.float32)
         pred, target = t(pred).clamp(max=1.0), t(target)
-        return {"psnr": float(psnr(pred, target)),
-                "ssim": float(ssim(pred, target))}
+        out = {"psnr": float(psnr(pred, target)),
+               "ssim": float(ssim(pred, target))}
+        if self.lpips_fn is not None:
+            p = pred[None] if pred.ndim == 3 else pred
+            q = target[None] if target.ndim == 3 else target
+            with torch.no_grad():
+                out["lpips"] = float(self.lpips_fn(p, q).mean())
+        return out

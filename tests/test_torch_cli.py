@@ -2,7 +2,9 @@
 ``tests/test_cli_pipeline.py``: train -> resume (a no-op) -> test ->
 animate -> novel_view, eval (refine) and fit through
 ``instantavatar_torch.cli``; a train run at the confs' default network
-(NGP, the default hash grid); checkpoint save/restore; the device rule;
+(NGP, the default hash grid); the in-the-wild demo's four commands (fit
+with the SMPL deformer, train / novel_view / animate with the demo conf's
+smpl_init); checkpoint save/restore; the device rule;
 the same flow in a subprocess with the JAX side's libraries blocked; and
 the slice
 test: a JAX state carried into a run directory through
@@ -151,13 +153,17 @@ def test_animate_needs_its_pose_file(flow):
 
 def test_odd_image_sizes_raise(flow):
     """1080 // 16 = 67 px has no 2- or 3-pixel blocks: the flat render
-    says so and names the ROADMAP item (JAX renders it without the
-    prepass)."""
+    runs on 1-pixel blocks, as JAX renders it without the prepass
+    (tests/test_torch_smpl_deformer.py holds a 47 x 49 frame against
+    JAX's), and animate writes finite 67 px frames."""
     pose = _pose_npz(flow["root"] / "dance67.npz")
-    with pytest.raises(ValueError, match="open item 3"):
-        animate.main(["--config-name", "SNARF_NGP",
-                      f"+pose_sequence={pose}", "+render_downscale=16",
-                      *_overrides(flow["seq"], flow["run"])])
+    out = animate.main(["--config-name", "SNARF_NGP",
+                        f"+pose_sequence={pose}", "+render_downscale=16",
+                        *_overrides(flow["seq"], flow["run"])])
+    assert out["frames"] == 3 and out["nonfinite_frames"] == 0
+    assert all(0 < c < 1 for c in out["alpha_coverage"])
+    assert read_png(flow["run"] / "animation" / "0002.png").shape \
+        == (67, 67, 4)
 
 
 def test_render_session_reuses_the_frame_grid(flow, monkeypatch):
@@ -219,15 +225,14 @@ def test_cli_eval_refine(flow, tmp_path):
 
 
 def test_cli_fit_exports_poses(tmp_path):
-    """tests/test_cli_pipeline.py's fit run, LPIPS off: two frames, one
-    epoch, the fitting conf (version-2 deformer, ngp_loss's depth term);
+    """tests/test_cli_pipeline.py's fit run: two frames, one epoch, the
+    fitting conf (version-2 deformer, ngp_loss's LPIPS and depth terms);
     ``poses/train.npz`` holds every frame's parameters and the loss logs
-    carry the depth term."""
+    carry both patch terms."""
     seq = make_synthetic_sequence(tmp_path / "seq", n_frames=2, H=32, W=32,
                                   device="cpu")
     trainer, state, out = fit_cli.main(
-        ["--config-name", "SNARF_NGP_fitting",
-         "model.opt.loss.opt.w_lpips=0", "train.max_epochs=1",
+        ["--config-name", "SNARF_NGP_fitting", "train.max_epochs=1",
          "train.check_val_every_n_epoch=1", "sampler.num_patch=2",
          "sampler.patch_size=16", *_overrides(seq, tmp_path / "run"),
          "dataset.opt.train.end=1", "dataset.opt.val.end=0",
@@ -239,16 +244,28 @@ def test_cli_fit_exports_poses(tmp_path):
     assert trainer.avatar.deformer.version == 2
     losses = trainer.last_losses
     assert "loss_depth_reg" in losses and "drift_transl" in losses
+    assert "loss_lpips" in losses
     assert all(np.isfinite(float(v)) for v in losses.values())
 
 
 def test_fit_at_its_conf_lpips_raises(tmp_path):
-    """The fitting conf's own ``w_lpips: 0.01`` stops the CLI before it
-    writes anything, naming the ROADMAP item that ports LPIPS."""
-    with pytest.raises(NotImplementedError, match="open item 4"):
-        fit_cli.main(["--config-name", "SNARF_NGP_fitting",
-                      *_overrides(tmp_path / "seq", tmp_path / "run")])
-    assert not (tmp_path / "run").exists()
+    """The fitting conf at its defaults (the NGP network at the default
+    hash grid, ``w_lpips: 0.01`` with the random VGG trunk, the depth
+    term), one epoch of one 48 px frame: it runs and logs a finite LPIPS
+    term (before LPIPS was ported this conf raised)."""
+    seq = make_synthetic_sequence(tmp_path / "seq", n_frames=2, H=48, W=48,
+                                  device="cpu")
+    over = [a for a in _overrides(seq, tmp_path / "run")
+            if not a.startswith("network")] + ["dataset.opt.train.end=0"]
+    trainer, state, out = fit_cli.main(
+        ["--config-name", "SNARF_NGP_fitting", "train.max_epochs=1",
+         "sampler.num_patch=2", "sampler.patch_size=16", *over])
+    av = trainer.avatar
+    assert type(av.field).__name__ == "NGPField" and state.step == 1
+    assert av.loss_weights["w_lpips"] == 0.01 and av.lpips_fn.net == "vgg"
+    assert not av.lpips_fn.numerically_matched
+    lp = float(trainer.last_losses["loss_lpips"])
+    assert np.isfinite(lp) and lp > 0 and out.exists()
 
 
 def test_cli_train_at_the_default_network(tmp_path):
@@ -319,8 +336,7 @@ def test_entry_points_need_a_gpu_or_the_cpu_key(flow, monkeypatch, tmp_path):
     with pytest.raises(SystemExit, match=r"\+device=cpu"):
         eval_cli.main(["--config-name", "SNARF_NGP_refine", *over])
     with pytest.raises(SystemExit, match=r"\+device=cpu"):
-        fit_cli.main(["--config-name", "SNARF_NGP_fitting",
-                      "model.opt.loss.opt.w_lpips=0", *over])
+        fit_cli.main(["--config-name", "SNARF_NGP_fitting", *over])
     assert not (tmp_path / "run").exists()
 
 
@@ -358,7 +374,7 @@ animate.main(["+pose_sequence={tmp_path / 'p.npz'}", "+render_downscale=20"]
 novel_view.main(["+render_downscale=20", "+n_frames=2"] + over)
 eval.main(["--config-name", "SNARF_NGP_refine", "train.max_epochs=1",
            "sampler.num_sample=256", "sampler.kernel_size=4"] + over)
-fit.main(["--config-name", "SNARF_NGP_fitting", "model.opt.loss.opt.w_lpips=0",
+fit.main(["--config-name", "SNARF_NGP_fitting",
           "train.max_epochs=1", "sampler.num_patch=2", "sampler.patch_size=16"]
          + over + ["run_dir={tmp_path / 'fitrun'}"])
 assert all(sys.modules[m] is None for m in {BLOCKED!r})
@@ -442,3 +458,75 @@ def test_animate_matches_jax_render_frames(tmp_path):
         assert 10 * np.log10(1.0 / max(mse, 1e-12)) >= 40.0, (i, mse)
         da = np.abs(got[..., 3].astype(int) - want[..., 3].astype(int))
         assert (da > 2).sum() <= 9 and da.max() <= 13, (i, da.max())
+
+
+def _demo_overrides(seq, run, snarf=True):
+    """The demo flow's overrides: the sequence as ``dataset=custom/video``
+    (2 train frames, 1 val, 1 test), the run directory, small network,
+    renderer and (with ``snarf``, the demo conf's deformer) SNARF
+    sizes."""
+    return ["deformer.opt.resolution=32"] * snarf + [
+            f"dataset.opt.dataroot={seq}", f"run_dir={run}",
+            "network=voxel_triplane", "network.opt.voxel_res=8",
+            "network.opt.voxel_feats=4", "network.opt.plane_res=16",
+            "network.opt.plane_feats=4", "renderer.MAX_SAMPLES=32",
+            "renderer.k_cap=8", "renderer.grid_size=16",
+            "dataset.opt.train.end=1", "dataset.opt.val.end=0",
+            "dataset.opt.test.start=2", "dataset.opt.test.end=2",
+            "dataset.opt.test.skip=1", "sampler.num_patch=2",
+            "sampler.patch_size=16", "+device=cpu"]
+
+
+def test_cli_demo_flow(tmp_path):
+    """bash/run-neuman-demo.sh on the port, at 48 px on the CPU: ``fit``
+    with ``deformer=smpl`` (the nearest-vertex SMPLDeformer, LPIPS and
+    depth terms) exports the poses; ``train --config-name demo
+    sampler.dilate=8`` trains on them with per-frame smpl_init grids
+    (updated every step, the seeded stack held by the 500-step latch);
+    ``novel_view`` and ``animate`` render that run."""
+    from instantavatar_torch.deformers import SMPLDeformer
+    seq = make_synthetic_sequence(tmp_path / "seq", n_frames=3, H=48, W=48,
+                                  device="cpu")
+    ftr, fstate, poses = fit_cli.main(
+        ["--config-name", "SNARF_NGP_fitting", "dataset=custom/video",
+         "deformer=smpl", "train.max_epochs=1",
+         *_demo_overrides(seq, tmp_path / "fit", snarf=False)])
+    assert isinstance(ftr.avatar.deformer, SMPLDeformer)
+    assert ftr.avatar.deformer.threshold == 0.05
+    losses = {k: float(v) for k, v in ftr.last_losses.items()}
+    assert all(np.isfinite(v) for v in losses.values())
+    assert "loss_lpips" in losses and "loss_depth_reg" in losses
+    fitted = np.load(poses)
+    assert fitted["body_pose"].shape == (2, 69) \
+        and fitted["betas"].shape == (1, 10)
+
+    over = _demo_overrides(seq, tmp_path / "demo")
+    demo = ["--config-name", "demo", "dataset=custom/video"]
+    trainer, state = train.main(demo + ["sampler.dilate=8",
+                                        "train.max_epochs=1", *over])
+    av = trainer.avatar
+    assert av.smpl_init and av.grid_update_interval == 1
+    assert trainer.dm.trainset.sampler.dilate == 8
+    np.testing.assert_array_equal(trainer.dm.trainset.smpl_params["body_pose"],
+                                  fitted["body_pose"])
+    occ = state.grid.occupancy
+    assert occ.shape == (2, 16, 16, 16) and state.step == 2
+    fracs = occ.reshape(2, -1).float().mean(-1)
+    assert bool(((fracs > 0) & (fracs < 0.5)).all())
+    seeded = trainer.init_state().grid
+    for a, b in zip(state.grid, seeded):
+        assert torch.equal(a, b)
+    ck = torch.load(sorted((tmp_path / "demo" / "checkpoints")
+                           .glob("step_*"))[-1] / "state.pt",
+                    weights_only=True)
+    assert ck["grid"]["occupancy"].shape == (2, 16, 16, 16)
+
+    out = novel_view.main(demo + ["+render_downscale=20", "+n_frames=2",
+                                  *over])
+    assert out["frames"] == 2 and out["nonfinite_frames"] == 0
+    pose = _pose_npz(tmp_path / "dance.npz")
+    out = animate.main(demo + [f"+pose_sequence={pose}",
+                               "+render_downscale=20", *over])
+    assert out["frames"] == 3 and out["nonfinite_frames"] == 0
+    assert read_png(tmp_path / "demo" / "animation" / "0000.png").shape \
+        == (54, 54, 4)

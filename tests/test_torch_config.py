@@ -2,8 +2,9 @@
 PyYAML on every file of ``confs/`` and on single scalars, the emitter read
 back by PyYAML, ``load_config`` against JAX's on the four top-level
 configs (with and without the CLI test's overrides), the builder's knobs
-against JAX's ``build_avatar`` (the NGP field and the refine and fitting
-configs included), and the options the port does not have."""
+against JAX's ``build_avatar`` (the NGP field, the refine, fitting and
+demo configs, the SMPL deformer, smpl_init and LPIPS included), and the
+options the port does not have."""
 from pathlib import Path
 
 import pytest
@@ -124,15 +125,7 @@ def test_builder_knobs_match_jax(monkeypatch):
 @pytest.mark.parametrize("name,over,what", [
     ("SNARF_NGP", ["network=triplane"], "network=triplane"),
     ("SNARF_NGP", ["network=mlp"], "network=mlp"),
-    ("SNARF_NGP", ["network=voxel_triplane", "deformer=smpl"],
-     "SMPLDeformer"),
-    ("SNARF_NGP_fitting", [], "w_lpips"),
-    ("demo", ["network=voxel_triplane"], "smpl_init"),
-    ("SNARF_NGP", ["network=voxel_triplane",
-                   "model.opt.loss.opt.w_lpips=0.1"], "w_lpips"),
-], ids=["SNARF_NGP-over1-triplane", "SNARF_NGP-over2-mlp",
-        "SNARF_NGP-over3-SMPLDeformer", "SNARF_NGP_fitting-w_lpips",
-        "demo-over6-smpl_init", "SNARF_NGP-over7-w_lpips"])
+], ids=["SNARF_NGP-over1-triplane", "SNARF_NGP-over2-mlp"])
 def test_unported_options_raise(name, over, what):
     """Each option the port lacks stops the build with the ROADMAP item
     that ports it, before anything is built."""
@@ -148,13 +141,26 @@ def test_unported_options_raise(name, over, what):
     ("SNARF_NGP", []),
     ("SNARF_NGP_refine", PIPELINE),
     ("SNARF_NGP_fitting", PIPELINE + ["model.opt.loss.opt.w_lpips=0"]),
+    pytest.param("SNARF_NGP", ["network=voxel_triplane", "deformer=smpl"],
+                 id="SNARF_NGP-over3-SMPLDeformer"),
+    pytest.param("SNARF_NGP_fitting", [], id="SNARF_NGP_fitting-w_lpips"),
+    pytest.param("demo", ["network=voxel_triplane"],
+                 id="demo-over6-smpl_init"),
+    pytest.param("SNARF_NGP", ["network=voxel_triplane",
+                               "model.opt.loss.opt.w_lpips=0.1"],
+                 id="SNARF_NGP-over7-w_lpips"),
+    pytest.param("SNARF_NGP_fitting", ["deformer=smpl"],
+                 id="SNARF_NGP_fitting-deformer_smpl"),
+    pytest.param("demo", [], id="demo-defaults"),
 ])
 def test_ngp_and_smpl_configs_build_as_jax(monkeypatch, name, over):
-    """The confs' default network and the refine and fitting configs
-    build: the field class and widths, optimize_smpl / is_refine, the
-    SMPL learning rate and the frozen field, the loss weights, the
-    deformer version and the noise as JAX's ``build_avatar`` builds
-    them."""
+    """The confs' default network, the refine, fitting and demo configs,
+    and the SMPL deformer, smpl_init and LPIPS options build: the field
+    class and widths, optimize_smpl / is_refine, the SMPL learning rate
+    and the frozen field, the loss weights and the LPIPS module (its
+    presence and net), smpl_init and the grid-update interval it forces,
+    the deformer class and its threshold or version, and the noise, as
+    JAX's ``build_avatar`` builds them."""
     import instantavatar_tpu.train.optim as jax_optim
     from instantavatar_tpu.config.build import build_avatar as jax_build
     cfg = load_config(CONFS, name, over)
@@ -169,18 +175,27 @@ def test_ngp_and_smpl_configs_build_as_jax(monkeypatch, name, over):
     jav = jax_build(cfg, steps_per_epoch=7)
     av = build_avatar(cfg, steps_per_epoch=7, device="cpu")
     assert type(av.field).__name__ == type(jav.field).__name__
-    if name == "SNARF_NGP":
+    if name == "SNARF_NGP" and not over:
         assert av.field.grid == tuple(jav.field.grid)
         assert av.field.table.shape == (16, 2 ** 19, 2)
         assert av.field.sigma_dims == jav.field.sigma_dims
     for k in ("optimize_smpl", "is_refine", "noise_steps", "loss_weights",
-              "_use_ngp_loss"):
+              "_use_ngp_loss", "smpl_init", "grid_update_interval"):
         assert getattr(av, k) == getattr(jav, k), k
+    assert (av.lpips_fn is None) == (jav.lpips_fn is None)
+    if av.lpips_fn is not None:
+        assert av.lpips_fn.net == jav.lpips_fn.net == "vgg"
+        assert not av.lpips_fn.numerically_matched
     spec = av.optimizer
     assert (spec.lr, spec.smpl_lr, spec.freeze_field) == (
         seen["lr"], seen["smpl_lr"], seen["freeze_field"])
-    assert av.deformer.version == jav.deformer.version
-    assert (av.deformer.version == 2) == name.endswith("fitting")
+    assert type(av.deformer).__name__ == type(jav.deformer).__name__
+    if "deformer=smpl" in over:
+        assert av.deformer.threshold == jav.deformer.threshold == 0.05
+    else:
+        assert av.deformer.version == jav.deformer.version
+        assert (av.deformer.version == 2) == name.endswith("fitting")
+    assert av.smpl_init == (name == "demo")
 
 
 def test_native_loader_and_unknown_targets_raise():

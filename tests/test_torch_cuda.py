@@ -1,8 +1,9 @@
 """Tests of the port that need an NVIDIA GPU (marker ``cuda``): the hand
 CUDA kernel against its plain version on the card, the field's
 no-autograd rule for the kernel head, one training step on the card
-against the same step on the CPU, and the NGP hash encode and field on
-the card against the CPU. They skip where there is no card. This
+against the same step on the CPU, the NGP hash encode and field, the
+nearest-vertex SMPL deformer (deform and bake) and LPIPS on the card
+against the CPU. They skip where there is no card. This
 file imports no jax; on a machine that has only PyTorch, skip the
 jax-loading conftest:
 
@@ -201,3 +202,79 @@ def test_hash_encode_on_card_matches_cpu(cuda):
         c, s = field.apply(torch.as_tensor(x, device=dev) - 0.5, 0 * one, one)
         outs.append((c.detach().cpu(), s.detach().cpu()))
     torch.testing.assert_close(outs[0], outs[1], rtol=1e-5, atol=1e-5)
+
+
+def test_smpl_deformer_on_card_matches_cpu(cuda):
+    """The nearest-vertex SMPLDeformer at SMPL's width (the 7,008-vertex
+    toy body) on the card against the CPU: ``prepare`` 1e-5, ``deform``'s
+    valid equal and xc 1e-5 where the nearest vertex agrees (exact ties
+    and distances within 1e-6 of the threshold aside), and the bake's
+    rows and sigma likewise."""
+    import numpy as np
+    from instantavatar_torch.body import toy_smpl_model
+    from instantavatar_torch.deformers import SMPLDeformer
+    from instantavatar_torch.ops import nearest_vertex
+    g = np.random.default_rng(0)
+    pose = {"betas": 0.5 * g.standard_normal((1, 10)),
+            "body_pose": 0.3 * g.standard_normal((1, 69)),
+            "global_orient": 0.4 * g.standard_normal((1, 3)),
+            "transl": np.array([[0.1, 0.2, 4.0]])}
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        d = SMPLDeformer(toy_smpl_model(ring_size=16, bone_rings=18,
+                                        device=dev))
+        args = [torch.as_tensor(pose[k], dtype=torch.float32, device=dev)
+                for k in ("betas", "body_pose", "global_orient", "transl")]
+        cano = d.build_canonical(args[0])
+        frame = d.prepare(cano, *args)
+        if not outs:
+            v = frame.verts_smpl.cpu().numpy()
+            pts = np.concatenate([
+                v[g.integers(0, len(v), 20000)]
+                + 0.03 * g.standard_normal((20000, 3)),
+                g.uniform(v.min(0), v.max(0), (20000, 3))]).astype(np.float32)
+        p = torch.as_tensor(pts, device=dev)
+        xc, valid = d.deform(frame, p)
+        rows, sig = d.bake_packed_cache(cano, frame, p,
+                                        lambda x: 10 * torch.sin(3 * x).sum(-1))
+        d2, idx = nearest_vertex(p, frame.verts_smpl)
+        outs.append([t.detach().cpu() for t in (frame.T_inv, frame.verts_smpl,
+                                                xc, valid, rows, sig, d2, idx)])
+    (T0, v0, x0, ok0, r0, s0, d0, i0), (T1, v1, x1, ok1, r1, s1, d1, i1) = outs
+    torch.testing.assert_close(T0, T1, rtol=0, atol=1e-5)
+    torch.testing.assert_close(v0, v1, rtol=0, atol=1e-5)
+    torch.testing.assert_close(d0, d1, rtol=0, atol=1e-5)
+    same = (i0 == i1) & ((d1 - 0.05 ** 2).abs() > 1e-6)
+    assert float(same.float().mean()) >= 0.999
+    assert torch.equal(ok0[same], ok1[same]) and 0.1 < float(ok1.float().mean())
+    torch.testing.assert_close(x0[same], x1[same], rtol=0, atol=1e-5)
+    torch.testing.assert_close(r0[same], r1[same], rtol=0, atol=1e-5)
+    torch.testing.assert_close(s0[same], s1[same], rtol=0, atol=1e-4)
+
+
+def test_lpips_on_card_matches_cpu(cuda):
+    """LPIPS (VGG on the fitting step's 4 x 32 x 32 patch stack, AlexNet
+    on 64 px frames; random trunk) on the card with TF32 off against the
+    CPU: distances 1e-4 relative, the prediction's gradient 1e-3
+    L2-relative, the CPU tests' bound against JAX (cuDNN's fp32 backward
+    sums in another order than the CPU's: measured 4.3e-4 on VGG)."""
+    import warnings
+    import numpy as np
+    from instantavatar_torch.losses import load_lpips
+    g = np.random.default_rng(1)
+    for net, size in (("vgg", 32), ("alex", 64)):
+        a = g.random((4, size, size, 3), dtype=np.float32)
+        b = np.clip(a + 0.2 * g.standard_normal(a.shape), 0, 1) \
+            .astype(np.float32)
+        res = []
+        for dev in (cuda, torch.device("cpu")):
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                mod = load_lpips(net, allow_random=True, device=dev)
+            p = torch.as_tensor(a, device=dev).requires_grad_()
+            dist = mod(p, torch.as_tensor(b, device=dev))
+            dist.sum().backward()
+            res.append((dist.detach().cpu(), p.grad.cpu()))
+        (d0, g0), (d1, g1) = res
+        torch.testing.assert_close(d0, d1, rtol=1e-4, atol=0)
+        assert float((g0 - g1).norm() / g1.norm()) <= 1e-3, net

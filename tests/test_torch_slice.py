@@ -193,16 +193,23 @@ def test_golden_frame_96px():
 
 
 def test_unported_paths_raise():
-    """The dense/windows eval and the ngp_loss terms are not ported and
-    say so; an unknown eval grid is refused (the density grid itself
-    renders, tests/test_torch_grid.py)."""
+    """The dense/windows eval is not ported and says so; w_lpips > 0
+    needs an LPIPS module, as in JAX, and with one the model computes the
+    term through ``ngp_loss``; an unknown eval grid is refused (the
+    density grid itself renders, tests/test_torch_grid.py)."""
+    from instantavatar_torch.losses import load_lpips
     body = toy_smpl_model(device="cpu")
     field = VoxelTriplaneField(voxel_res=4, plane_res=4, device="cpu")
     snarf = SNARFDeformer(body, resolution=16)
     with pytest.raises(NotImplementedError, match="flat"):
         AvatarModel(body, field, snarf, eval_sampling="dense")
-    with pytest.raises(NotImplementedError, match="ngp_loss"):
+    with pytest.raises(ValueError, match="lpips_fn"):
         AvatarModel(body, field, snarf, loss_weights={"w_lpips": 1.0})
+    with pytest.warns(UserWarning, match="RANDOM"):
+        lp = load_lpips("vgg", allow_random=True)
+    av = AvatarModel(body, field, snarf, loss_weights={"w_lpips": 1.0},
+                     lpips_fn=lp)
+    assert av._use_ngp_loss and av.lpips_fn is lp
     av = AvatarModel(body, field, snarf, grid_size=8, eval_grid="shell")
     state = av.init(np.zeros(10, np.float32))
     with pytest.raises(ValueError, match="eval_grid"):

@@ -141,7 +141,9 @@ def test_freeze_field_and_smpl_adam_match_optax():
 def test_ngp_loss_depth_term_matches_jax():
     """``ngp_loss`` with the depth term on a patch stack: every component
     and the input gradients within 1e-6 of JAX; on flat rays the patch
-    term is absent, as in JAX; w_lpips > 0 raises naming open item 4."""
+    term is absent, as in JAX; with w_lpips > 0 and an LPIPS module the
+    LPIPS term is computed too (held against JAX in
+    tests/test_torch_lpips.py)."""
     rng = np.random.default_rng(5)
     pred = {"rgb": rng.random((2, 8, 8, 3), dtype=np.float32),
             "alpha": rng.random((2, 8, 8), dtype=np.float32),
@@ -167,8 +169,18 @@ def test_ngp_loss_depth_term_matches_jax():
     _, fl = ngp_loss(flat, {k: _t(v.reshape(-1, *v.shape[3:]))
                             for k, v in tgt.items()}, **w)
     assert "loss_depth_reg" not in fl
-    with pytest.raises(NotImplementedError, match="open item 4"):
-        ngp_loss(tp, tgt, w_lpips=0.01)
+    from instantavatar_torch.losses import load_lpips
+    with pytest.warns(UserWarning, match="RANDOM"):
+        lp = load_lpips("vgg", allow_random=True)
+    # VGG's fifth tap needs >= 16 px: the same patches, upsampled
+    up = {k: _t(np.repeat(np.repeat(v, 2, 1), 2, 2)) for k, v in pred.items()}
+    tup = {k: _t(np.repeat(np.repeat(v, 2, 1), 2, 2)) for k, v in tgt.items()}
+    _, l0 = ngp_loss(up, tup, **w)
+    _, ll = ngp_loss(up, tup, lpips_fn=lp, **{**w, "w_lpips": 0.01})
+    assert float(ll["loss_lpips"]) > 0
+    np.testing.assert_allclose(
+        float(ll["loss"]), float(l0["loss"]) + 0.01 * float(ll["loss_lpips"]),
+        rtol=1e-6)
 
 
 def _batches():
