@@ -30,9 +30,10 @@ points a user calls, and checks it in phases:
   9. training golden: one JAX update step and one plain step
      (``tests/data/torch_train_golden.npz``) replayed on the card: losses,
      gradients and the updated grid within the CPU tests' tolerances;
- 10. the kernel timed at the rows per launch of each path (turntable,
-     training, val render and the four paths of phase 11), read from the
-     ``rows`` counter;
+ 10. at the rows per launch of each path (turntable, training, val
+     render, the paths of phases 11 and 13 and each eval mode of phase
+     14), read from the ``rows`` counter: the kernel against its plain
+     version (as in phase 3) and timed;
  11. the entry points: a 264 px capsule sequence directory (20 train + 1
      val + 2 test frames, toy body) written by the port's writer, then
      ``instantavatar_torch.cli.train`` in process with the flagship conf
@@ -71,15 +72,30 @@ points a user calls, and checks it in phases:
      with their device launches per call (plain PyTorch, XLA in the JAX
      package: not TPU kernels); the committed JAX SMPL-deformer golden
      frame (48 px), PSNR-bounded; one 540 px SMPL-deformer frame with the
-     voxel-triplane field, which must launch the fused head.
+     voxel-triplane field, which must launch the fused head;
+ 14. the rest of the single-device package: the native data engine (phase
+     11's train split must run on it; one more epoch of the train CLI
+     with ``+dataset.opt.native=false`` for the Python path's numbers; a
+     train batch timed warm on both paths; the engine's decode of the
+     sequence), a ``MocapDataset`` train split (its default EdgeSampler)
+     feeding 20 ``AvatarModel.step`` calls of the flagship configuration
+     (finite, falling losses), ``train network=triplane`` (three 32 x
+     256^2 planes) for 2 epochs (ms/step, peak memory, val PSNR above an
+     all-white frame's), and one 540 px frame of phase 4's avatar in each
+     eval mode of ``EVAL_MODES`` (flat, windows, dense, uncached, the
+     probed dense march, shared-corner, tiled rows, no transmittance cut,
+     the alpha skip): warm ms/frame, head launches and rows (each must
+     launch the head), rgb PSNR against the flat and the dense frame and,
+     as in phase 5, against the mode's frame with the plain head
+     (PSNR-bounded).
 
 Any failed check exits non-zero. The last stdout line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``
 and the line before it lists the kernels, with the kernel's launches in
 each path (turntable, training, val render, phase 11's CLI train run,
 Trainer validation, Trainer test, animate and novel_view, and phase 13's
-SMPL-deformer voxel-triplane frame; the NGP paths of phases 12 and 13
-evaluate the fp32 head and launch no kernel). ``--profile DIR`` also
+SMPL-deformer voxel-triplane frame, and phase 14's eval modes; the NGP
+and triplane paths evaluate the fp32 head and launch no kernel). ``--profile DIR`` also
 writes torch.profiler summaries and traces of two steady-state frames and
 of one grid-update step plus three plain training steps to DIR.
 
@@ -126,6 +142,42 @@ CLI_EPOCHS, CLI_POSES, CLI_TURNTABLE = 5, 6, 8
 # phase 12: the NGP golden's floor, fit's epochs, the default table's bytes
 NGP_GOLDEN_MIN_DB, FIT_EPOCHS = 35.0, 2
 NGP_TABLE_BYTES = 16 * 2 ** 19 * 2 * 4
+# phase 4's (bench.py's) render knobs; phase 14 varies the eval mode
+AVATAR_540_KW = dict(n_steps=128, k_cap=8, grid_size=64, eval_n_steps=48,
+                     cache_n_cand=1, samples_per_ray=5.0,
+                     eval_grid="smpl_shell", shell_margin=0.08)
+# phase 14: the eval modes (JAX's AvatarModel knobs), each rendered on
+# phase 4's avatar and state; the data and triplane runs' sizes
+EVAL_MODES = {
+    "flat": {},
+    "windows": dict(eval_sampling="windows"),
+    "dense": dict(eval_sampling="dense"),
+    "uncached": dict(use_warp_cache=False),
+    "cache_fused_probe": dict(eval_sampling="dense", cache_fused_probe=True),
+    "shared_corner_eval": dict(shared_corner_eval=True),
+    "flat_tile_rows": dict(flat_tile_rows=True),
+    "term_T_none": dict(term_T=None),
+    "alpha_skip": dict(alpha_skip=0.01),
+}
+# PSNR floors (dB) of each mode's frame against the flat and the dense
+# frame, set from the first card run (PERF.md): 25 where the modes
+# sample different z (JAX's windows/flat-vs-uncached bar,
+# tests/test_e2e_slice.py), 30 for the cached dense march against the full
+# search (JAX's cached-vs-uncached bar), 60 where the samples are the same
+# and only fp32 order differs, 45 for the samples past the transmittance
+# cut, 33 for the shared-corner lerp's extrapolation
+MODE_MIN_DB = {
+    "flat": (None, 25.0),
+    "windows": (25.0, 25.0),
+    "dense": (25.0, None),
+    "uncached": (25.0, 30.0),
+    "cache_fused_probe": (25.0, 60.0),
+    "shared_corner_eval": (33.0, 25.0),
+    "flat_tile_rows": (60.0, 25.0),
+    "term_T_none": (45.0, 25.0),
+    "alpha_skip": (60.0, 25.0),
+}
+MOCAP_STEPS, TRIPLANE_EPOCHS = 20, 2
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 BF16_FLOP_PER_S = 989e12       # dense bf16 tensor-core peak, same source
 FP32_FLOP_PER_S = 67e12        # fp32 outside the tensor cores, same source
@@ -238,6 +290,32 @@ def head_bound(M: int) -> tuple[float, str]:
                                        else "operations")
 
 
+@torch.no_grad()
+def head_check(dev, M: int, seed: int, what: str = "") -> float:
+    """The kernel against its plain version on M rows: on exact-sum inputs
+    (which must hold no tie) to HEAD_EXACT_TOL, on normal inputs by
+    ``head_agrees``. Prints the gaps; returns the normal inputs' max|diff|."""
+    from instantavatar_torch.kernels import (fused_field_head,
+                                             fused_field_head_ref)
+    args = head_inputs(M, seed, dev, exact=True)
+    out, ref = fused_field_head(*args), fused_field_head_ref(*args)
+    check(head_gap(ref, head_float64(*args))[0] <= HEAD_EXACT_TOL,
+          f"the exact inputs are not tie-free at M={M}")
+    ex = head_gap(out, ref)[0]
+    args = head_inputs(M, seed, dev)
+    out, ref = fused_field_head(*args), fused_field_head_ref(*args)
+    worst, n_over = head_gap(out, ref)
+    plain_worst, plain_over = head_gap(ref, head_float64(*args))
+    print(f"[kernel] {what}M={M}: exact-sum inputs max|diff| {ex:.3e} "
+          f"(tol {HEAD_EXACT_TOL}); normal inputs max|diff| {worst:.3e}, "
+          f"rows past {HEAD_TOL}: {n_over} (allowed {M // HEAD_FLIP_RATE}, "
+          f"each <= {HEAD_FLIP_TOL}); the plain version vs float64: "
+          f"{plain_worst:.3e}, {plain_over} rows")
+    check(ex <= HEAD_EXACT_TOL and head_agrees(out, ref),
+          f"kernel disagrees with plain version at M={M}")
+    return worst
+
+
 def kernel_phase(dev) -> dict:
     """Phase 3: the kernel against its plain version at the tile edges and
     at full size, then timed in turns with the plain version and the
@@ -247,28 +325,9 @@ def kernel_phase(dev) -> dict:
                                              head_wave_rows)
     wave = head_wave_rows(dev)
     print(f"[kernel] one pass of the persistent grid covers {wave} rows")
-    max_err = 0.0
+    max_err = max(head_check(dev, M, M)
+                  for M in (1, 17, 1000, wave - 1, wave + 1, 1_000_003))
     with torch.no_grad():
-        for M in (1, 17, 1000, wave - 1, wave + 1, 1_000_003):
-            args = head_inputs(M, M, dev, exact=True)
-            out, ref = fused_field_head(*args), fused_field_head_ref(*args)
-            exact_gap = head_gap(ref, head_float64(*args))[0]
-            check(exact_gap <= HEAD_EXACT_TOL,
-                  f"the exact inputs are not tie-free at M={M}")
-            ex = head_gap(out, ref)[0]
-            args = head_inputs(M, M, dev)
-            out, ref = fused_field_head(*args), fused_field_head_ref(*args)
-            worst, n_over = head_gap(out, ref)
-            plain_worst, plain_over = head_gap(ref, head_float64(*args))
-            max_err = max(max_err, worst)
-            print(f"[kernel] M={M}: exact-sum inputs max|diff| {ex:.3e} "
-                  f"(tol {HEAD_EXACT_TOL}); normal inputs max|diff| "
-                  f"{worst:.3e}, rows past {HEAD_TOL}: {n_over} (allowed "
-                  f"{M // HEAD_FLIP_RATE}, each <= {HEAD_FLIP_TOL}); the "
-                  f"plain version vs float64: {plain_worst:.3e}, "
-                  f"{plain_over} rows")
-            check(ex <= HEAD_EXACT_TOL and head_agrees(out, ref),
-                  f"kernel disagrees with plain version at M={M}")
         M = 1_500_000
         args = head_inputs(M, 7, dev)
         enc, sw, sb, cw, cb = args
@@ -306,13 +365,16 @@ def kernel_phase(dev) -> dict:
     return res
 
 
-def path_timings(dev, rows_per_launch: dict) -> dict:
-    """Phase 10: the kernel's time at each path's rows per launch."""
+def path_timings(dev, rows_per_launch: dict) -> tuple[dict, float]:
+    """Phase 10: at each path's rows per launch, the kernel against its
+    plain version (``head_check``) and timed. Returns the times and the
+    largest max|diff|."""
     from instantavatar_torch.kernels import fused_field_head
-    out = {}
+    out, max_err = {}, 0.0
     with torch.no_grad():
         for path, rows in rows_per_launch.items():
             M = max(1, round(rows))
+            max_err = max(max_err, head_check(dev, M, 11, f"{path}: "))
             args = head_inputs(M, 11, dev)
             for _ in range(3):
                 fused_field_head(*args)
@@ -322,7 +384,7 @@ def path_timings(dev, rows_per_launch: dict) -> dict:
             print(f"[kernel] {path}: {M} rows per launch, kernel "
                   f"{out[path]:.4f} ms (median of 15), bound {bound:.4f} "
                   f"ms, {100 * bound / out[path]:.1f}% of it")
-    return out
+    return out, max_err
 
 
 def make_avatar(device, *, deformer_res, grid_size, voxel_res, plane_res,
@@ -341,10 +403,9 @@ def make_avatar(device, *, deformer_res, grid_size, voxel_res, plane_res,
     deformer = SNARFDeformer(body, resolution=deformer_res,
                              cano_pose="a_pose", n_iters=6, cand_cap=2,
                              n_init_active=4)
-    return AvatarModel(body, field, deformer, n_steps=128, k_cap=8,
-                       grid_size=grid_size, eval_n_steps=48,
-                       cache_n_cand=1, samples_per_ray=5.0,
-                       eval_grid="smpl_shell", shell_margin=shell_margin)
+    return AvatarModel(body, field, deformer, **{
+        **AVATAR_540_KW, "grid_size": grid_size,
+        "shell_margin": shell_margin})
 
 
 def profile(fn, profile_dir: Path, name: str, what: str) -> None:
@@ -592,12 +653,19 @@ def cli_phase(dev, work: Path) -> dict:
           f"the train CLI took {trainer.steps_run} steps, not {steps}")
     res["ms_per_step"] = 1e3 * sum(trainer.epoch_seconds) / steps
     res["batch_ms"] = 1e3 * trainer.batch_seconds / steps
+    cache = trainer.dm.trainset.native_cache
+    check(cache is not None, "the train CLI's train split did not run on "
+          "the native data engine (its default)")
+    check(not trainer.dm.valset.native_active,
+          "the val split runs on the native engine (JAX's default: not)")
+    res["native_decode_ms"] = 1e3 * cache.decode_seconds
     print(f"[cli] train: {steps} steps, {res['ms_per_step']:.2f} ms/step "
-          f"(batches from PNG included, their assembly "
-          f"{res['batch_ms']:.2f} ms/step of host time; the first epoch "
-          f"decodes the frames: "
+          f"(batches from the native engine included, their assembly "
+          f"{res['batch_ms']:.2f} ms/step of host time: "
           f"{[round(1e3 * s / CLI_TRAIN, 1) for s in trainer.epoch_seconds]} "
-          f"ms/step by epoch); the whole CLI {res['train_cli_s']:.1f} s")
+          f"ms/step by epoch); the whole CLI {res['train_cli_s']:.1f} s; "
+          f"the engine's load decoded the {CLI_TRAIN} frames once, with "
+          f"read_png, in {res['native_decode_ms']:.1f} ms")
 
     t0 = time.perf_counter()
     (trainer, state), *paths["cli_val_render"] = _counted(
@@ -838,7 +906,8 @@ def ngp_phase(dev, work: Path) -> dict:
                            "grad_rows": sum(grad_rows),
                            "max_rows": max(r for r, _ in calls)}
     print(f"[ngp] train (SNARF_NGP, no network override): {steps} steps, "
-          f"{res['ms_per_step']:.2f} ms/step (batches from PNG included, "
+          f"{res['ms_per_step']:.2f} ms/step (batches from the native "
+          f"engine included, "
           f"their assembly {res['batch_ms']:.2f} ms/step); by epoch "
           f"{[round(1e3 * s / CLI_TRAIN, 1) for s in trainer.epoch_seconds]} "
           f"ms/step; peak memory {res['peak_mib']:.1f} MiB; the whole CLI "
@@ -1255,6 +1324,190 @@ def demo_phase(dev, work: Path) -> dict:
     return res
 
 
+def data_phase(dev, work: Path) -> dict:
+    """Phase 14, data: phase 11's CLI train for one epoch on the Python
+    path (``+dataset.opt.native=false``); the train split's batches timed
+    warm on both paths, in turns; then a ``MocapDataset`` train split
+    (its default EdgeSampler) on the same sequence feeding MOCAP_STEPS
+    ``AvatarModel.step`` calls of the flagship configuration (phase 7's)."""
+    from instantavatar_torch.cli import train
+    from instantavatar_torch.data import (AvatarDataset, MocapDataset,
+                                          PatchSampler)
+    seq = work / "seq"
+    res = {}
+    t0 = time.perf_counter()
+    trainer, _ = train.main(
+        ["--config-name", "SNARF_NGP", "train.max_epochs=1",
+         "train.check_val_every_n_epoch=1", *cli_overrides(seq, work / "py"),
+         "network=voxel_triplane", "+dataset.opt.native=false"])
+    torch.cuda.synchronize()
+    check(not trainer.dm.trainset.native_active,
+          "dataset.opt.native=false did not keep the Python path")
+    res["py_ms_per_step"] = 1e3 * sum(trainer.epoch_seconds) / CLI_TRAIN
+    res["py_batch_ms"] = 1e3 * trainer.batch_seconds / CLI_TRAIN
+    print(f"[data] train CLI, 1 epoch with +dataset.opt.native=false: "
+          f"{res['py_ms_per_step']:.2f} ms/step, batch assembly "
+          f"{res['py_batch_ms']:.2f} ms/step of host time (this first epoch "
+          f"decodes each PNG once, with read_png); the whole CLI "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # the conf's PatchSampler (4 x 32^2, ratio_mask 1), both paths warm
+    kw = dict(start=0, end=CLI_TRAIN - 1)
+    nat = AvatarDataset(seq, "train", native=True,
+                        sampler=PatchSampler(4, 32, 1.0), **kw)
+    py = AvatarDataset(seq, "train", sampler=PatchSampler(4, 32, 1.0), **kw)
+    check(nat.native_active, "the native engine did not build")
+    for i in range(CLI_TRAIN):
+        py[i]                                   # decode once
+    ms = {"native": [], "python": []}
+    for _ in range(2):
+        for name, ds in (("native", nat), ("python", py)):
+            t0 = time.perf_counter()
+            for i in range(CLI_TRAIN):
+                ds[i]
+            ms[name].append(1e3 * (time.perf_counter() - t0) / CLI_TRAIN)
+    res["native_item_ms"] = statistics.median(ms["native"])
+    res["python_item_ms"] = statistics.median(ms["python"])
+    res["decode_ms"] = 1e3 * nat.native_cache.decode_seconds
+    print(f"[data] a train batch (4 x 32^2 patches), warm, median of 2 "
+          f"passes over {CLI_TRAIN} frames in turns: native engine "
+          f"{res['native_item_ms']:.3f} ms, Python path "
+          f"{res['python_item_ms']:.3f} ms; the engine's decode of the "
+          f"sequence (read_png) {res['decode_ms']:.1f} ms")
+
+    mocap = MocapDataset(seq, "train", bg_rng=np.random.default_rng(3), **kw)
+    mocap.sampler.rng = np.random.default_rng(4)
+    avatar = make_trainer(dev, steps_per_epoch=CLI_TRAIN)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    state = avatar.init(mocap.smpl_params["betas"], generator=gen)
+    times, mse = [], []
+    for i in range(MOCAP_STEPS):
+        batch = mocap[i % CLI_TRAIN]
+        t0 = time.perf_counter()
+        state, losses = avatar.step(state, batch, gen)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        check(all(math.isfinite(float(v)) for v in losses.values()),
+              f"MocapDataset step {i}: a loss is not finite")
+        mse.append(float(losses["mse_loss"]))
+    res["mocap_ms_per_step"] = statistics.median(times[1:])
+    first, last = statistics.mean(mse[:5]), statistics.mean(mse[-5:])
+    print(f"[data] MocapDataset (EdgeSampler({mocap.sampler.num_mask} + "
+          f"{mocap.sampler.num_edge} + {mocap.sampler.num_rand} rays, kernel "
+          f"32)) -> {MOCAP_STEPS} AvatarModel.step calls of the flagship "
+          f"configuration: median {res['mocap_ms_per_step']:.2f} ms/step "
+          f"(first step, with the grid update, {times[0]:.1f} ms); mse_loss "
+          f"mean of the first 5 steps {first:.5f}, of the last 5 {last:.5f}")
+    check(mocap[0]["rgb"].shape == (4096, 3), "MocapDataset batch shape")
+    check(last < first, "the MocapDataset run's loss did not fall")
+    return res
+
+
+def triplane_phase(dev, work: Path) -> dict:
+    """Phase 14, the triplane field: ``train network=triplane`` (three
+    32 x 256^2 fp32 planes, the fp32 head) on phase 11's sequence for
+    TRIPLANE_EPOCHS epochs with a validation render."""
+    from instantavatar_torch.cli import train
+    run = work / "triplane_run"
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer, state = train.main(
+        ["--config-name", "SNARF_NGP", f"train.max_epochs={TRIPLANE_EPOCHS}",
+         f"train.check_val_every_n_epoch={TRIPLANE_EPOCHS}",
+         *cli_overrides(work / "seq", run), "network=triplane"])
+    torch.cuda.synchronize()
+    field = trainer.avatar.field
+    check(type(field).__name__ == "TriPlaneField"
+          and tuple(field.plane_xy.shape) == (32, 256, 256),
+          "network=triplane did not build the full-width TriPlaneField")
+    steps = TRIPLANE_EPOCHS * CLI_TRAIN
+    check(state.step == steps, f"triplane train took {state.step} steps")
+    res = {"ms_per_step": 1e3 * sum(trainer.epoch_seconds) / steps,
+           "peak_mib": torch.cuda.max_memory_allocated() / 2 ** 20}
+    val_psnr = [json.loads(line)["value"] for line in
+                (run / "tensorboard" / "scalars.jsonl").read_text()
+                .splitlines() if '"val/psnr"' in line][-1]
+    gt = torch.as_tensor(trainer.dm.valset[0]["rgb"])
+    white_db = psnr(torch.ones_like(gt), gt)
+    res["val_psnr"], res["white_psnr"] = val_psnr, white_db
+    print(f"[triplane] train network=triplane (3 x 32 x 256^2 planes, fp32 "
+          f"head): {steps} steps, {res['ms_per_step']:.2f} ms/step; by epoch "
+          f"{[round(1e3 * s / CLI_TRAIN, 1) for s in trainer.epoch_seconds]}"
+          f" ms/step; peak memory {res['peak_mib']:.1f} MiB; the whole CLI "
+          f"{time.perf_counter() - t0:.1f} s; val PSNR {val_psnr:.2f} dB (an "
+          f"all-white frame: {white_db:.2f} dB)")
+    check(val_psnr > white_db,
+          "triplane val PSNR does not beat an all-white frame")
+    return res
+
+
+def modes_phase(dev, avatar, state, grid) -> dict:
+    """Phase 14, the eval modes: one 540 px frame of phase 4's avatar,
+    state and shell grid in each of EVAL_MODES (a model per mode on the
+    same body, field and deformer; the frame carries per-pixel rays for
+    the ray-bundle modes). Per mode: warm ms/frame (the second frame of a
+    session: the bake reused, as on the turntable), the head's launches
+    and rows, rgb PSNR against the flat and the dense frame, and, as in
+    phase 5, against the same mode rendered (and baked) with the plain
+    head in the kernel's place."""
+    from instantavatar_torch.data.rays import make_ray_basis, make_ray_grid
+    from instantavatar_torch.kernels import fused_field_head_ref
+    from instantavatar_torch.train import AvatarModel, RenderSession
+    K = np.array([[2000.0, 0, W / 2], [0, 2000.0, H / 2], [0, 0, 1]])
+    ro, rd = make_ray_grid(K, np.eye(4), H, W)
+    batch = {"ray_basis": make_ray_basis(K, np.eye(4)),
+             "rays_o": torch.as_tensor(ro.reshape(-1, 3), device=dev),
+             "rays_d": torch.as_tensor(rd.reshape(-1, 3), device=dev),
+             "betas": np.zeros(10, np.float32),
+             "body_pose": np.zeros(69, np.float32),
+             "global_orient": np.array([0.0, 0.5, 0.0], np.float32),
+             "transl": np.array([0.0, 0.15, 5.0], np.float32)}
+    res, rgbs = {}, {}
+    base = {**AVATAR_540_KW, "grid_size": avatar.grid_size,
+            "shell_margin": avatar.shell_margin}
+    for mode, knobs in EVAL_MODES.items():
+        av = AvatarModel(avatar.body, avatar.field, avatar.deformer,
+                         **base, **knobs)
+        sess = RenderSession()
+        av.render_frame(state, batch, grid=grid, image_shape=(H, W),
+                        session=sess)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, launches, rows = _counted(lambda: av.render_frame(
+            state, batch, grid=grid, image_shape=(H, W), session=sess))
+        ms = 1e3 * (time.perf_counter() - t0)
+        cover = float(out["alpha"].mean())
+        check(bool(torch.isfinite(out["rgb"]).all()) and 0.05 < cover < 0.95,
+              f"mode {mode}: non-finite or implausible frame ({cover:.3f})")
+        check(launches > 0, f"mode {mode} never launched the CUDA head")
+        avatar.field.head_fn = fused_field_head_ref
+        try:
+            plain = av.render_frame(state, batch, grid=grid,
+                                    image_shape=(H, W))
+        finally:
+            avatar.field.head_fn = None
+        rgbs[mode] = out["rgb"]
+        res[mode] = {"ms": ms, "launches": launches, "rows": rows,
+                     "samples": out["n_samples"], "alpha": cover,
+                     "swap_db": psnr(out["rgb"], plain["rgb"])}
+    for mode, r in res.items():
+        r["db_vs_flat"] = psnr(rgbs[mode], rgbs["flat"])
+        r["db_vs_dense"] = psnr(rgbs[mode], rgbs["dense"])
+        print(f"[modes] {mode}: {r['ms']:.2f} ms/frame warm at {H}px, "
+              f"{r['samples']} samples, alpha coverage {r['alpha']:.3f}, "
+              f"head launches {r['launches']}, rows {r['rows']}; rgb PSNR "
+              f"vs flat {r['db_vs_flat']:.2f} dB, vs dense "
+              f"{r['db_vs_dense']:.2f} dB, vs its plain-head render "
+              f"{r['swap_db']:.2f} dB (bound {HEAD_SWAP_MIN_DB})")
+        check(r["swap_db"] >= HEAD_SWAP_MIN_DB,
+              f"mode {mode}: the head swap changed the frame")
+        for ref, floor in zip(("flat", "dense"), MODE_MIN_DB[mode]):
+            check(floor is None or r[f"db_vs_{ref}"] >= floor,
+                  f"mode {mode}: PSNR against the {ref} frame below its "
+                  f"floor {floor} dB")
+    return res
+
+
 def main(profile_dir: Path | None) -> int:
     # -- 1. device --------------------------------------------------------
     if not torch.cuda.is_available():
@@ -1417,9 +1670,16 @@ def main(profile_dir: Path | None) -> int:
         ngp_phase(dev, Path(work))
         # -- 13. the in-the-wild demo -------------------------------------
         demo = demo_phase(dev, Path(work))
+        # -- 14. the data engine, MocapDataset, the triplane field --------
+        data_phase(dev, Path(work))
+        triplane_phase(dev, Path(work))
+    # -- 14. the eval modes on phase 4's avatar --------------------------------
+    modes = modes_phase(dev, avatar, state, grid)
 
     # -- 10. the kernel at each path's rows per launch ------------------------
-    paths = {**cli["paths"], **demo["paths"]}
+    paths = {**cli["paths"], **demo["paths"],
+             **{f"mode_{m}": (r["launches"], r["rows"])
+                for m, r in modes.items()}}
     by_path = {"turntable": launches, "train": train["train_launches"],
                "val_render": train["val_launches"],
                **{k: v[0] for k, v in paths.items()}}
@@ -1428,7 +1688,7 @@ def main(profile_dir: Path | None) -> int:
                     **{k: v[1] for k, v in paths.items()}}
     rows_per_launch = {k: rows_by_path[k] / n for k, n in by_path.items()
                        if n}
-    ms_by_path = path_timings(dev, rows_per_launch)
+    ms_by_path, path_err = path_timings(dev, rows_per_launch)
 
     print(json.dumps({"kernels": [{
         "name": "fused_field_head", "route": "cuda",
@@ -1437,7 +1697,8 @@ def main(profile_dir: Path | None) -> int:
         "launches": sum(by_path.values()), "launches_by_path": by_path,
         "rows_per_launch_by_path": rows_per_launch,
         "ms_by_path": ms_by_path,
-        "max_abs_err": head["max_err"], "ms": head["kernel_ms"],
+        "max_abs_err": max(head["max_err"], path_err),
+        "ms": head["kernel_ms"],
         "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"], "library_ms": head["library_ms"]}]}))
     print(json.dumps({"ok": True, "device": {

@@ -3,9 +3,10 @@
 Port of ``instantavatar_tpu/config/build.py``: the same conf-tree surface
 (groups, keys, interpolations) assembled into the port's objects on one
 ``device``: body model, field, deformer, renderer knobs, loss weights,
-grouped Adam, datamodule and trainer. Options the port does not have yet
-raise ``NotImplementedError`` from ``check_ported`` before anything is
-built or trained, naming the ROADMAP item that ports them.
+grouped Adam, datamodule and trainer. ``network=mlp`` raises
+``NotImplementedError`` from ``check_ported`` before anything is built or
+trained: ``VanillaNeRF`` is ported as a module, but no ``AvatarModel`` can
+evaluate it, in either package (see ``MLP_REFUSAL``).
 """
 from __future__ import annotations
 
@@ -19,8 +20,14 @@ __all__ = ["check_ported", "build_body_model", "build_field",
            "build_deformer", "build_avatar", "build_datamodule",
            "build_trainer"]
 
-# where the unported fields wait (ROADMAP.md, "Open items")
-OFF_PATH_SLICE = "ROADMAP.md open item 7: the triplane and mlp fields"
+MLP_REFUSAL = (
+    "network=mlp (VanillaNeRF) cannot drive an AvatarModel: its apply "
+    "takes (x, d=None) (instantavatar_tpu/models/mlp.py:65) while "
+    "AvatarModel calls field.apply(params, x, center, scale) "
+    "(instantavatar_tpu/train/model.py:429), so the JAX package cannot "
+    "render or train it either; the port has the module "
+    "(instantavatar_torch.models.VanillaNeRF) but not that pairing. Use "
+    "network=ngp, network=voxel_triplane or network=triplane")
 
 
 def _field_kind(network_cfg: Any) -> str:
@@ -28,7 +35,8 @@ def _field_kind(network_cfg: Any) -> str:
     the same tests but misses ``VanillaNeRF`` (``confs/network/mlp.yaml``)
     and, its ``"triplane" in target`` being case-sensitive,
     ``TriPlaneField`` (``confs/network/triplane.yaml``): it builds both as
-    an NGPField. Here they are the mlp and triplane fields."""
+    an NGPField. Here they are the mlp and triplane fields (a departure
+    from JAX's builder, ROADMAP fault 3.2)."""
     target = str(network_cfg.get("_target_", ""))
     name = target.rsplit(".", 1)[-1].lower()
     if "voxeltriplane" in name or "voxel_triplane" in target:
@@ -48,12 +56,9 @@ def _is_smpl_deformer(deformer_cfg: Any) -> bool:
 
 def check_ported(cfg: Any) -> None:
     """Raise ``NotImplementedError`` for an option of a composed config
-    that the port does not run yet: the triplane and mlp networks."""
-    kind = _field_kind(cfg.get("network", {}) or {})
-    if kind not in ("ngp", "voxel_triplane"):
-        raise NotImplementedError(
-            f"network={kind} is not ported yet ({OFF_PATH_SLICE}); use "
-            f"network=ngp or network=voxel_triplane")
+    that no ``AvatarModel`` runs: the mlp network."""
+    if _field_kind(cfg.get("network", {}) or {}) == "mlp":
+        raise NotImplementedError(MLP_REFUSAL)
 
 
 def build_body_model(deformer_cfg: Any, device: torch.device | str):
@@ -77,14 +82,17 @@ def build_body_model(deformer_cfg: Any, device: torch.device | str):
 def build_field(network_cfg: Any, device: torch.device | str):
     """The field a network conf names. ``ngp`` is ``NGPField()`` at its
     default grid: like JAX, the conf's use_viewdir, cond_dim, center and
-    scale are not read (the canonical bbox sets center and scale)."""
-    from ..models import NGPField, VoxelTriplaneField
+    scale are not read (the canonical bbox sets center and scale);
+    ``triplane`` is ``TriPlaneField()`` (32 x 256 x 256 planes; its conf
+    has no options); ``mlp`` raises (``MLP_REFUSAL``)."""
+    from ..models import NGPField, TriPlaneField, VoxelTriplaneField
     kind = _field_kind(network_cfg)
     if kind == "ngp":
         return NGPField(device=device)
-    if kind != "voxel_triplane":
-        raise NotImplementedError(
-            f"network={kind} is not ported yet ({OFF_PATH_SLICE})")
+    if kind == "triplane":
+        return TriPlaneField(device=device)
+    if kind == "mlp":
+        raise NotImplementedError(MLP_REFUSAL)
     opt = network_cfg.get("opt", {}) or {}
     kw = {k: int(opt[k]) for k in ("voxel_res", "voxel_feats", "plane_res",
                                    "plane_feats") if k in opt}

@@ -5,7 +5,7 @@ Works on numpy arrays only (never imports jax): tests pass
 same weights. ``seeded_field_params`` and ``seeded_ngp_params`` make such
 weights from a numpy seed, for runs where JAX is not installed (the smoke
 run on the GPU). ``train_state_from_numpy`` carries a whole JAX ``TrainState``
-across: field params (either field), Adam moments and count, grid, step,
+across: field params (any of the three feature fields), Adam moments and count, grid, step,
 the canonical bake (SNARF's; the SMPL deformer's empty one becomes the
 bbox the normalization implies) and the per-frame SMPL parameters;
 ``checkpoint_from_jax_state`` writes one into a run directory as the
@@ -25,7 +25,8 @@ from .deformers.smpl_deformer import SMPLCanonical
 from .ops.grid_sample import pack_corners_3d
 from .render.density_grid import DensityGridState
 
-__all__ = ["field_params_from_numpy", "seeded_field_params",
+__all__ = ["field_params_from_numpy", "triplane_params_from_numpy",
+           "vanilla_nerf_params_from_numpy", "seeded_field_params",
            "seeded_ngp_params", "snarf_canonical_from_numpy",
            "grid_state_from_numpy", "train_state_from_numpy",
            "checkpoint_from_jax_state", "lpips_from_numpy"]
@@ -43,7 +44,8 @@ def _has(obj, name) -> bool:
 
 
 def field_params_from_numpy(params) -> dict[str, torch.Tensor]:
-    """``VoxelTriplaneParams`` or ``NGPParams`` fields (numpy; NamedTuple
+    """``VoxelTriplaneParams``, ``NGPParams`` or ``TriPlaneParams`` fields
+    (numpy; NamedTuple
     or dict) -> the matching field's state dict of CPU float32 tensors
     (load it with ``field.load_state_dict``, which copies onto the
     field's device)."""
@@ -53,6 +55,24 @@ def field_params_from_numpy(params) -> dict[str, torch.Tensor]:
         for i, a in enumerate(_get(params, k)):
             sd[f"{k}.{i}"] = torch.as_tensor(np.array(a, np.float32))
     return sd
+
+
+def triplane_params_from_numpy(params) -> dict[str, torch.Tensor]:
+    """``TriPlaneParams`` fields (numpy; NamedTuple or dict) ->
+    ``TriPlaneField``'s state dict: the (C, H, W) planes and the MLPs keep
+    their names, as in ``field_params_from_numpy``."""
+    if _has(params, "voxel") or not all(
+            _has(params, k) for k in ("plane_xy", "plane_xz", "plane_yz")):
+        raise ValueError("not TriPlaneParams: need plane_xy/xz/yz and no "
+                         "voxel")
+    return field_params_from_numpy(params)
+
+
+def vanilla_nerf_params_from_numpy(params) -> dict[str, torch.Tensor]:
+    """``VanillaNeRFParams`` (numpy; ``w`` and ``b`` tuples) ->
+    ``VanillaNeRF``'s state dict (``w.i``, ``b.i``)."""
+    return {f"{k}.{i}": torch.as_tensor(np.array(a, np.float32))
+            for k in ("w", "b") for i, a in enumerate(_get(params, k))}
 
 
 def seeded_field_params(voxel_res: int, plane_res: int, seed: int, *,

@@ -17,11 +17,18 @@ near/far are ``||transl|| -/+ 1`` unless given.
 Each frame is decoded once, on first use, and kept as uint8 (the PNG
 decoder is pure Python); the float image and the downscale are made per
 batch with the JAX package's arithmetic, so batches are bit for bit its
-Python path's. The native C++ loader is not ported.
+Python path's. ``native=True`` serves the batches from the native C++
+engine instead (``native_loader``): the JAX engine's patch sampling, its
+seeds drawn from ``bg_rng`` as JAX draws them, so the batches are bit for
+bit JAX's engine's. ``AvatarDataModule`` turns it on for the train split
+unless the conf says ``native: false``, as JAX's does; where it cannot be
+built, a warning says so and the Python path serves. ``MocapDataset`` is
+the synthetic-mocap split with an ``EdgeSampler`` by default.
 """
 from __future__ import annotations
 
 import glob
+import warnings
 from pathlib import Path
 from typing import Any
 
@@ -32,9 +39,7 @@ from .rays import make_ray_basis, make_ray_grid, near_far_from_transl
 from .samplers import EdgeSampler, PatchSampler
 
 __all__ = ["load_smpl_param", "FrameDataset", "AvatarDataset",
-           "AvatarDataModule"]
-
-NATIVE_LOADER = "ROADMAP.md open item 5: the native loader"
+           "AvatarDataModule", "MocapDataset"]
 
 
 def load_smpl_param(path: str | Path) -> dict[str, np.ndarray]:
@@ -82,13 +87,18 @@ class _Split:
             img = img.reshape(-1, 3)
             msk = msk.reshape(-1)
             bg = bg.reshape(-1, 3)
+        return self._datum(idx, img.astype(np.float32), msk, bg, rays_o,
+                           rays_d)
 
+    def _datum(self, idx: int, rgb, alpha, bg, rays_o, rays_d
+               ) -> dict[str, Any]:
+        """A batch dict from the cut image, mask, background and rays."""
         sp = self.smpl_params
-        datum = {"rgb": img.astype(np.float32), "rays_o": rays_o,
+        datum = {"rgb": rgb, "rays_o": rays_o,
                  "rays_d": rays_d, "betas": sp["betas"][0],
                  "global_orient": sp["global_orient"][idx],
                  "body_pose": sp["body_pose"][idx],
-                 "transl": sp["transl"][idx], "alpha": msk, "bg_color": bg,
+                 "transl": sp["transl"][idx], "alpha": alpha, "bg_color": bg,
                  "idx": np.int32(idx)}
         if self.sampler is None:
             # full-image batches carry the pixel-grid generator: the flat
@@ -153,6 +163,9 @@ class AvatarDataset(_Split):
       refine: load the test-pose file for pose refinement.
       fitting: ignore cached per-split pose files.
       near/far: optional fixed values; default ||transl|| -/+ 1.
+      native: serve batches from the native engine where it applies (a
+        PatchSampler or no sampler, downscale 1, 2, 4 or 8) and builds;
+        ``native_active`` says whether it does.
     """
 
     def __init__(self, root: str | Path, split: str, *,
@@ -162,6 +175,7 @@ class AvatarDataset(_Split):
                  refine: bool = False, fitting: bool = False,
                  near: float | None = None, far: float | None = None,
                  mask_ext: str | None = None,
+                 native: bool = False,
                  bg_rng: np.random.Generator | None = None):
         root = Path(root)
         self.root = root
@@ -190,6 +204,24 @@ class AvatarDataset(_Split):
         self.sampler = sampler if split == "train" else None
         self.bg_rng = bg_rng or np.random.default_rng()
         self._decoded: dict[int, tuple[np.ndarray, np.ndarray]] = {}
+        # the engine's sequence cache, when it serves this split
+        self.native_cache = None
+        if native and downscale in (1, 2, 4, 8) \
+                and (self.sampler is None
+                     or isinstance(self.sampler, PatchSampler)):
+            try:
+                from .native_loader import NativeSequenceCache
+                self.native_cache = NativeSequenceCache(
+                    self.img_lists, self.msk_lists, downscale=downscale)
+                self._native_seed = int(self.bg_rng.integers(2 ** 31))
+            except (ImportError, OSError, RuntimeError, ValueError) as e:
+                warnings.warn(f"native loader unavailable ({e}); using "
+                              "the Python path", stacklevel=2)
+
+    @property
+    def native_active(self) -> bool:
+        """True when the native engine serves this split's batches."""
+        return self.native_cache is not None
 
     @staticmethod
     def _resolve_poses(root: Path, split: str, refine: bool, fitting: bool,
@@ -237,6 +269,28 @@ class AvatarDataset(_Split):
             self._decoded[idx] = (img, msk)
         return self._decoded[idx]
 
+    def __getitem__(self, idx: int) -> dict[str, Any]:
+        if self.native_cache is None:
+            return super().__getitem__(idx)
+        smp = self.sampler
+        if smp is not None:
+            seed = self._native_seed + idx * 100003 \
+                + int(self.bg_rng.integers(2 ** 20))
+            rgb, alpha, bg, coords = self.native_cache.sample_patches(
+                idx, smp.n, smp.patch_size, smp.p, smp.dilate, seed)
+            S = smp.patch_size
+            rays_o = np.stack([self.rays_o[y:y + S, x:x + S]
+                               for y, x in coords])
+            rays_d = np.stack([self.rays_d[y:y + S, x:x + S]
+                               for y, x in coords])
+        else:
+            rgb, alpha = self.native_cache.full_frame(idx)
+            rgb, alpha = rgb.reshape(-1, 3), alpha.reshape(-1)
+            bg = np.ones_like(rgb)
+            rays_o = self.rays_o.reshape(-1, 3)
+            rays_d = self.rays_d.reshape(-1, 3)
+        return self._datum(idx, rgb, alpha, bg, rays_o, rays_d)
+
     def _frame(self, idx: int) -> tuple[np.ndarray, np.ndarray]:
         img_u8, msk_raw = self._decode(idx)
         img = (img_u8 / 255.0).astype(np.float32)
@@ -256,17 +310,13 @@ class AvatarDataModule:
     Built from a config node shaped like the reference's dataset confs:
     opt.dataroot, opt.{train,val,test}.{start,end,skip,downscale,...},
     opt.train.sampler (a _target_ node or an already-built sampler).
-    ``opt.native`` (the JAX package's C++ loader) is not ported: true
-    raises ``NotImplementedError``.
+    ``opt.native`` (the native engine) defaults to true on the train split
+    and false on the others, as in JAX.
     """
 
     def __init__(self, opt: Any):
         from ..config import instantiate
         self.opt = opt
-        if bool(opt.get("native", False)):
-            raise NotImplementedError(
-                f"dataset.opt.native: the native C++ data loader is not "
-                f"ported ({NATIVE_LOADER})")
         root = Path(opt.dataroot)
         for split in ("train", "val", "test"):
             if split not in opt:
@@ -281,7 +331,20 @@ class AvatarDataModule:
                 sampler=sampler,
                 refine=bool(sopt.pop("refine", False)),
                 fitting=bool(opt.get("fitting", False)),
+                native=bool(opt.get("native", split == "train")),
                 **{k: v for k, v in sopt.items()
                    if k in ("start", "end", "skip", "downscale", "near",
                             "far", "mask_ext")})
             setattr(self, f"{split}set", ds)
+
+
+class MocapDataset(AvatarDataset):
+    """The synthetic-mocap (SURREAL-style) split: on train, an
+    ``EdgeSampler(num_samples, 0.6, 0.3, 32)`` unless a sampler is given
+    (the reference's inline 60/30/10 mask/edge/random ray sampling)."""
+
+    def __init__(self, root, split, *, num_samples: int = 4096, **kw):
+        if kw.get("sampler") is None and split == "train":
+            kw["sampler"] = EdgeSampler(num_samples, ratio_mask=0.6,
+                                        ratio_edge=0.3, kernel_size=32)
+        super().__init__(root, split, **kw)

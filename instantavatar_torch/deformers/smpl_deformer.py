@@ -176,9 +176,11 @@ class SMPLDeformer:
 
     def make_packed_cache_fns(self, cache_rows: torch.Tensor,
                               grid_aabb: torch.Tensor, grid_size: int,
-                              net_apply, n_cand: int = 1):
+                              net_apply, n_cand: int = 1, net_shared=None):
+        """The packed-cache closures (``packed_cache.make_packed_cache_fns``)."""
         return make_packed_cache_fns(cache_rows, grid_aabb, grid_size,
-                                     net_apply, n_cand)
+                                     net_apply, n_cand, self.ROW_FLOATS,
+                                     net_shared=net_shared)
 
     def make_field_fn(self, cano: SMPLCanonical, frame: SMPLFrame,
                       net_apply, eval_mode: bool = False):

@@ -16,6 +16,11 @@ MLP E -> 64 -> 16 with raw sigma at geo[0], colour MLP 15 -> 64 -> 64 ->
   * ``head="mlp"`` (training): ``mlp_head``, JAX ``_mlp``'s rounding
     points, differentiable. Gradients reach the fp32 feature parameters
     through the bf16 casts of the packed corner rows, as in JAX.
+
+``apply_shared`` (the shared-corner eval, ``AvatarModel(
+shared_corner_eval=True)``) evaluates Q variants of N points against one
+corner gather per lattice per point (``encode_shared``), then the same
+head over the Q * N rows.
 """
 from __future__ import annotations
 
@@ -23,7 +28,10 @@ import torch
 from torch import nn
 
 from ..kernels.fused_head import _NO_GRAD_MSG, fused_field_head
-from ..ops.grid_sample import (grid_sample_2d_packed, grid_sample_3d_packed,
+from ..ops.grid_sample import (grid_sample_2d_packed,
+                               grid_sample_2d_packed_shared,
+                               grid_sample_3d_packed,
+                               grid_sample_3d_packed_shared,
                                pack_corners_2d, pack_corners_3d)
 from .ngp import _init_mlp, _mlp
 
@@ -114,7 +122,57 @@ class VoxelTriplaneField(nn.Module):
         f_yz = plane(self.plane_yz, xn[..., [1, 2]])
         return torch.cat([f_vox, f_xy, f_xz, f_yz], dim=-1)
 
+    def encode_shared(self, xn_ref: torch.Tensor, xn: torch.Tensor
+                      ) -> torch.Tensor:
+        """Encode Q variants ``xn`` (Q, N, 3) against one corner gather
+        per lattice at ``xn_ref`` (N, 3) (both normalized to [0, 1]); a
+        variant outside its reference cell extrapolates linearly. Returns
+        (Q, N, E) bf16."""
+        Gv1 = self.voxel_res + 1
+        Gp1 = self.plane_res + 1
+        dt = self.compute_dtype
+        vox_packed = pack_corners_3d(self.voxel.permute(3, 0, 1, 2)).to(dt)
+        f_vox = grid_sample_3d_packed_shared(
+            vox_packed, (Gv1, Gv1, Gv1), 2.0 * xn_ref.clamp(0.0, 1.0) - 1.0,
+            2.0 * xn.clamp(0.0, 1.0) - 1.0)
+
+        def plane(p, ij):
+            return grid_sample_2d_packed_shared(
+                pack_corners_2d(p.permute(2, 0, 1)).to(dt), (Gp1, Gp1),
+                xn_ref[..., ij], xn[..., ij])
+
+        return torch.cat([f_vox, plane(self.plane_xy, [0, 1]),
+                          plane(self.plane_xz, [0, 2]),
+                          plane(self.plane_yz, [1, 2])], dim=-1)
+
     # -- field -------------------------------------------------------------
+
+    def _head(self, enc: torch.Tensor, head: str):
+        if head == "mlp":
+            return mlp_head(enc, self.sigma_w, self.sigma_b, self.color_w,
+                            self.color_b, self.compute_dtype)
+        return (self.head_fn or fused_field_head)(enc.contiguous(),
+                                                  *self._head_args())
+
+    def _check_head(self, x: torch.Tensor, head: str) -> None:
+        if head not in ("fused", "mlp"):
+            raise ValueError(f"unknown head {head!r}")
+        if head == "fused" and x.is_cuda and torch.is_grad_enabled():
+            raise NotImplementedError(_NO_GRAD_MSG)
+
+    def apply_shared(self, x_ref: torch.Tensor, x: torch.Tensor,
+                     center: torch.Tensor, scale: torch.Tensor, *,
+                     head: str = "fused"
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+        """``apply`` over Q variants x (Q, N, 3) sharing the corner
+        gathers of x_ref (N, 3) (``encode_shared``). Returns (color (Q, N,
+        3), raw sigma (Q, N))."""
+        self._check_head(x, head)
+        Q, N = x.shape[:2]
+        enc = self.encode_shared((x_ref - center) / scale + 0.5,
+                                 (x - center) / scale + 0.5)
+        color, sigma = self._head(enc.reshape(Q * N, -1), head)
+        return color.reshape(Q, N, 3), sigma.reshape(Q, N)
 
     def _head_args(self):
         """Head parameters in the kernel's dtypes: bf16 weights (their
@@ -130,20 +188,11 @@ class VoxelTriplaneField(nn.Module):
         (...,)). ``center``/``scale`` from ``bbox_center_scale``; ``head``
         "fused" (inference) or "mlp" (training, differentiable). (This
         overrides ``nn.Module.apply``: the name follows the JAX field.)"""
-        if head not in ("fused", "mlp"):
-            raise ValueError(f"unknown head {head!r}")
-        if head == "fused" and x.is_cuda and torch.is_grad_enabled():
-            raise NotImplementedError(_NO_GRAD_MSG)
+        self._check_head(x, head)
         lead = x.shape[:-1]
         enc = self.encode((x - center) / scale + 0.5).reshape(
             -1, self.sigma_dims[0])
-        if head == "mlp":
-            color, sigma = mlp_head(enc, self.sigma_w, self.sigma_b,
-                                    self.color_w, self.color_b,
-                                    self.compute_dtype)
-        else:
-            color, sigma = (self.head_fn or fused_field_head)(
-                enc.contiguous(), *self._head_args())
+        color, sigma = self._head(enc, head)
         return color.reshape(*lead, 3), sigma.reshape(lead)
 
     def density(self, x: torch.Tensor, center: torch.Tensor,

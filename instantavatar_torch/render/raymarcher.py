@@ -1,15 +1,18 @@
 """Ray-marching primitives and the dense training marcher.
 
-Port of ``Rays``, ``ray_aabb``, ``sample_z``, ``compact_samples`` and
-``render_rays`` from ``instantavatar_tpu/render/raymarcher.py``. The
+Port of ``instantavatar_tpu/render/raymarcher.py``: ``Rays``,
+``ray_aabb``, ``sample_z``, ``compact_samples``, ``render_rays`` and the
+eval marchers ``render_rays_windows`` and ``render_rays_probed``. The
 training marcher keeps the JAX layout: dense stratified samples, the
 occupancy test, compaction to a static (N, k_cap) slot layout, one field
 call, the -1e3 fill of empty slots, sigma noise, then ``composite``. The
 static layout is kept on purpose: the losses average over all N * k_cap
 slots, padded ones included. Random draws (stratified jitter, sigma noise)
 are passed in as tensors, so a caller can feed the same numbers to both
-packages. The windowed and probed eval marchers belong to the ablation
-paths and are not ported.
+packages. The eval marchers composite preselected windows
+(``render_rays_windows``: one field call per window, no occupancy test)
+or march the packed warp cache with one gather for occupancy and payload
+(``render_rays_probed``).
 """
 from __future__ import annotations
 
@@ -20,7 +23,7 @@ import torch
 from .compositing import composite
 
 __all__ = ["Rays", "RenderOutput", "ray_aabb", "sample_z", "compact_samples",
-           "render_rays"]
+           "render_rays", "render_rays_windows", "render_rays_probed"]
 
 
 class Rays(NamedTuple):
@@ -136,6 +139,75 @@ def render_rays(field_fn: Callable[[torch.Tensor],
     sigma = torch.where(keep, sigma, torch.full_like(sigma, -1e3))
     if noise is not None:
         sigma = sigma + noise_std * noise
+    out = composite(sigma, rgb, z_k, step, keep, bg_color)
+    return RenderOutput(out.rgb, out.depth, out.alpha,
+                        counter.to(torch.int32), out.weights)
+
+
+def render_rays_windows(field_fn_pts: Callable[[torch.Tensor],
+                                               tuple[torch.Tensor,
+                                                     torch.Tensor,
+                                                     torch.Tensor]],
+                        o: torch.Tensor, d: torch.Tensor,
+                        z_w: torch.Tensor, keep: torch.Tensor,
+                        step: torch.Tensor,
+                        bg_color: torch.Tensor | None = None
+                        ) -> RenderOutput:
+    """Composite preselected sample windows: ``z_w``/``keep`` (N, K) are
+    each ray's ascending window centers (from a coarse prepass), ``step``
+    (N, 1) the compositing delta; ``field_fn_pts`` gives validity (the
+    packed cache row's), so there is no occupancy test here."""
+    pts = o[:, None] + z_w[..., None] * d[:, None]
+    rgb, sigma, f_valid = field_fn_pts(pts.reshape(-1, 3))
+    K = z_w.shape[-1]
+    rgb = rgb.reshape(-1, K, 3)
+    sigma = sigma.reshape(-1, K)
+    keep = keep & f_valid.reshape(-1, K)
+    sigma = torch.where(keep, sigma, torch.full_like(sigma, -1e3))
+    counter = keep.sum(-1)
+    out = composite(sigma, rgb, z_w, step, keep, bg_color)
+    return RenderOutput(out.rgb, out.depth, out.alpha,
+                        counter.to(torch.int32), out.weights)
+
+
+def render_rays_probed(probe_fn: Callable[[torch.Tensor],
+                                          tuple[torch.Tensor, torch.Tensor]],
+                       field_fn: Callable[[torch.Tensor, torch.Tensor],
+                                          tuple[torch.Tensor, torch.Tensor,
+                                                torch.Tensor]],
+                       rays: Rays, *,
+                       aabb: torch.Tensor | None = None,
+                       n_steps: int = 64, k_cap: int = 8,
+                       bg_color: torch.Tensor | None = None
+                       ) -> RenderOutput:
+    """Eval marcher whose occupancy and per-cell payload come from one
+    gather: ``probe_fn`` (M, 3) -> (occupied (M,), payload (M, R)); the
+    payload is compacted with z and handed to ``field_fn(pts, payload)``.
+    ``rays.near``/``far`` should be tight per-ray bounds (a prepass's)."""
+    o, d = rays.o.reshape(-1, 3), rays.d.reshape(-1, 3)
+    near, far = rays.near.reshape(-1), rays.far.reshape(-1)
+    if aabb is not None:
+        a_near, a_far = ray_aabb(o, d, aabb[0], aabb[1])
+        near = torch.clamp(a_near, near, far)
+        far = torch.clamp(a_far, near, far)
+    z, step = sample_z(near, far, n_steps)
+    pts = o[:, None] + z[..., None] * d[:, None]
+    occ, payload = probe_fn(pts.reshape(-1, 3))
+    R = payload.shape[-1]
+    valid = occ.reshape(z.shape) & (z < far[..., None])
+    idx, keep = compact_samples(valid, k_cap)
+    z_k = z.gather(-1, idx)
+    pts_k = o[:, None] + z_k[..., None] * d[:, None]
+    payload_k = payload.reshape(*z.shape, R).gather(
+        1, idx[..., None].expand(*idx.shape, R))
+    counter = keep.sum(-1)
+    rgb, sigma, f_valid = field_fn(pts_k.reshape(-1, 3),
+                                   payload_k.reshape(-1, R))
+    K = z_k.shape[-1]
+    rgb = rgb.reshape(-1, K, 3)
+    sigma = sigma.reshape(-1, K)
+    keep = keep & f_valid.reshape(-1, K)
+    sigma = torch.where(keep, sigma, torch.full_like(sigma, -1e3))
     out = composite(sigma, rgb, z_k, step, keep, bg_color)
     return RenderOutput(out.rgb, out.depth, out.alpha,
                         counter.to(torch.int32), out.weights)

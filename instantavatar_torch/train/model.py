@@ -52,6 +52,20 @@ CLIs build it, in five stages:
      block sample, one cached-Newton step per pixel) and segmented
      compositing (``composite_stream``).
 
+The flat stream is the default eval mode. ``render_frame`` also runs the
+JAX render's other modes (``render_rays_frame``), on batches with
+per-pixel rays: "windows" (each hit ray composites up to ``n_windows``
+prepass windows, ``render_rays_windows``), "dense" (``eval_n_steps``
+samples over each hit ray's prepass span, through ``render_rays`` on the
+cache's occupancy or, with ``cache_fused_probe``, ``render_rays_probed``)
+and ``use_warp_cache=False`` (the full search per sample over the whole
+near/far span, JAX's uncached path). Their prepass runs on the block
+lattice too, against the transmittance-cut cache table (windows) or the
+grid dilated ``prepass_dilate`` times (dense, uncached). Every mode
+evaluates the field through the eval head (``head="fused"``: the CUDA
+kernel for the voxel-triplane field), ``shared_corner_eval`` through the
+field's ``apply_shared``.
+
 PyTorch runs eagerly with dynamic shapes, so samples and occupied cells
 are selected with ``torch.nonzero`` at their exact counts (row-major and
 order-preserving like ``jnp.nonzero``). The JAX path's static sample and
@@ -78,9 +92,12 @@ from ..models.voxel_triplane import VoxelTriplaneField
 from ..ops.knn import nearest_vertex
 from ..render.compositing import composite_stream
 from ..render.density_grid import (DensityGridState, initialize_grid,
-                                   make_grid_state, occupancy_lookup,
-                                   occupancy_regularizer, update_grid)
-from ..render.raymarcher import Rays, ray_aabb, render_rays, sample_z
+                                   make_grid_state, max_pool3d,
+                                   occupancy_lookup, occupancy_regularizer,
+                                   update_grid)
+from ..render.raymarcher import (Rays, compact_samples, ray_aabb,
+                                 render_rays, render_rays_probed,
+                                 render_rays_windows, sample_z)
 from .optim import GroupedAdam, OptimizerSpec, make_optimizer
 from .smpl_params import SMPLParams, lookup_frame
 
@@ -162,6 +179,7 @@ class AvatarModel:
                  grid_size: int = 64,
                  grid_update_interval: int = 20,
                  noise_steps: int = 1000,
+                 use_noise: bool = True,
                  optimize_smpl: bool = False,
                  is_refine: bool = False,
                  smpl_init: bool = False,
@@ -170,13 +188,20 @@ class AvatarModel:
                  use_warp_cache: bool = True,
                  train_warp_cache: bool = True,
                  cache_n_cand: int = 1,
+                 cache_fused_probe: bool = False,
                  eval_sampling: str = "flat",
+                 shared_corner_eval: bool = False,
+                 flat_tile_rows: bool = False,
+                 n_windows: int = 48,
                  term_T: float | None = 1e-5,
+                 alpha_skip: float | None = None,
                  samples_per_ray: float = 3.0,
                  eval_n_steps: int | None = None,
                  cell_budget: int | None = None,
                  prepass_steps: int = 96,
                  prepass_block: int | None = None,
+                 prepass_dilate: int = 1,
+                 prepass_margin_steps: float = 1.5,
                  loss_weights: dict[str, float] | None = None,
                  lpips_fn=None,
                  optimizer: OptimizerSpec | None = None):
@@ -184,8 +209,8 @@ class AvatarModel:
 
         Training reads ``n_steps`` (dense samples per ray), ``k_cap``
         (evaluated slots per ray), ``grid_size``, ``grid_update_interval``,
-        ``noise_steps`` (sigma noise std 1 before this step, 0 disables),
-        ``optimize_smpl`` (per-frame SMPL parameters in the state, see
+        ``noise_steps`` (sigma noise std 1 before this step, 0 disables;
+        ``use_noise=False`` disables it too), ``optimize_smpl`` (per-frame SMPL parameters in the state, see
         ``init``), ``is_refine`` (no sigma noise, no occupancy
         regularizer), ``smpl_init`` (per-frame grids seeded from the posed
         body and updated every step, see ``init``), ``train_warp_cache``
@@ -194,17 +219,30 @@ class AvatarModel:
         1024)), ``loss_weights`` (w_rgb, w_alpha, w_reg, and ngp_loss's
         w_lpips and w_depth_reg), ``lpips_fn`` (the LPIPS module, needed
         when w_lpips > 0) and ``optimizer`` (default: optax.adam(1e-2)'s
-        settings). The flat render reads ``grid_size``, ``eval_grid``,
-        ``shell_margin``, ``cache_n_cand``, ``term_T``, ``prepass_steps`` and
-        ``prepass_block``. ``samples_per_ray`` and ``eval_n_steps`` sized the
-        JAX render's static buffers and dense eval; they are accepted for
-        signature parity and unused.
+        settings).
+
+        The frame render reads ``grid_size``, ``eval_grid``,
+        ``shell_margin``, ``cache_n_cand``, ``prepass_steps`` and
+        ``prepass_block``, and its mode knobs, as JAX does:
+        ``eval_sampling`` "flat" (one stream of kept block samples),
+        "windows" (``n_windows`` windows per ray from the prepass) or
+        "dense" (``eval_n_steps`` samples over each ray's prepass span,
+        ``k_cap`` of them evaluated, through ``render_rays`` or, with
+        ``cache_fused_probe``, ``render_rays_probed``);
+        ``use_warp_cache=False`` (every mode: the full search per sample
+        over the whole near/far span, ``n_steps`` samples); ``term_T``
+        (flat and windows: the transmittance cut on the baked cell sigma;
+        None selects by cache validity); ``alpha_skip`` (with ``term_T``:
+        drop prepass strides whose baked alpha is below it);
+        ``shared_corner_eval`` and ``flat_tile_rows`` (flat: the field's
+        ``apply_shared``, or the Newton step on rows tiled per pixel
+        offset); ``prepass_dilate`` (3^3 max-pools of the grid for the
+        dense and uncached prepass) and ``prepass_margin_steps`` (the
+        span's margin in prepass strides). ``samples_per_ray`` sized the
+        JAX render's static sample buffer; it is accepted and unused.
         """
-        if not use_warp_cache or eval_sampling != "flat" or term_T is None:
-            raise NotImplementedError(
-                "only the flat warp-cache render with transmittance "
-                "termination is ported (ROADMAP.md queue 1, item 13: "
-                "windows/dense eval and the ablation knobs)")
+        if eval_sampling not in ("flat", "windows", "dense"):
+            raise ValueError(f"unknown eval_sampling {eval_sampling!r}")
         self.body = body_model
         self.field = field
         self.deformer = deformer
@@ -214,17 +252,27 @@ class AvatarModel:
         self.smpl_init = smpl_init
         self.grid_update_interval = 1 if smpl_init else grid_update_interval
         # refine mode disables the sigma noise
-        self.noise_steps = 0 if is_refine else noise_steps
+        self.noise_steps = noise_steps if use_noise and not is_refine else 0
         self.optimize_smpl = optimize_smpl
         self.is_refine = is_refine
         self.eval_grid = eval_grid
         self.shell_margin = shell_margin
         self.train_warp_cache = train_warp_cache
         self.cache_n_cand = cache_n_cand
+        self.use_warp_cache = use_warp_cache
+        self.cache_fused_probe = cache_fused_probe
+        self.eval_sampling = eval_sampling
+        self.shared_corner_eval = shared_corner_eval
+        self.flat_tile_rows = flat_tile_rows
+        self.n_windows = n_windows
         self.term_T = term_T
+        self.alpha_skip = alpha_skip
+        self.eval_n_steps = eval_n_steps or min(n_steps, 64)
         self.cell_budget = cell_budget or max(grid_size ** 3 // 8, 1024)
         self.prepass_steps = prepass_steps
         self.prepass_block = prepass_block
+        self.prepass_dilate = prepass_dilate
+        self.prepass_margin_steps = prepass_margin_steps
         self.loss_weights = dict(w_rgb=1.0, w_alpha=0.1, w_reg=0.1)
         known = {"w_rgb", "w_alpha", "w_reg", "w_lpips", "w_depth_reg"}
         unknown = set(loss_weights or ()) - known
@@ -606,6 +654,74 @@ class AvatarModel:
                                           torch.full_like(sig_cell, -1.0))
         return cache, sig_table, int(cell_idx.numel())
 
+    def _session_bake(self, state: TrainState, batch, dstate,
+                      grid: DensityGridState,
+                      session: RenderSession | None):
+        """``_bake``, reused from ``session`` when its key matches:
+        (cache, sig_table, n_occ, baked)."""
+        key = (self._frame_key(state, batch, grid)
+               if session is not None else None)
+        if session is not None and session.last_bake is not None \
+                and session.last_bake[0] == key:
+            return (*session.last_bake[1], False)
+        out = self._bake(state, dstate, grid)
+        if session is not None:
+            session.last_bake = (key, out, (self.field, state, grid))
+        return (*out, True)
+
+    def _window_occupancy(self, sig_table: torch.Tensor, occ_fn,
+                          aabb: torch.Tensor, pts: torch.Tensor,
+                          step: torch.Tensor) -> torch.Tensor:
+        """The flat and windows prepass selection on (nr, S) strides
+        ``pts``: with ``term_T``, strides whose cell has a valid cache row
+        (and, with ``alpha_skip``, a baked alpha at the stride of at least
+        it), up to each ray's index where the exclusive prefix optical
+        depth of the baked cell sigma drops the estimated transmittance
+        below ``term_T``; without, the cache-validity table."""
+        if self.term_T is None:
+            return occ_fn(pts.reshape(-1, 3)).reshape(pts.shape[:2])
+        G = self.grid_size
+        rel = (pts.reshape(-1, 3) - aabb[0]) / (aabb[1] - aabb[0])
+        inside = ((rel >= 0.0) & (rel < 1.0)).all(dim=-1)
+        cell = (rel * G).to(torch.int32).clamp(0, G - 1)
+        qv = sig_table[((cell[:, 0] * G + cell[:, 1]) * G
+                        + cell[:, 2]).long()]
+        qv = torch.where(inside, qv, torch.full_like(qv, -1.0)) \
+            .reshape(pts.shape[:2])
+        occ = qv >= 0.0
+        tau = qv.clamp_min(0.0) * step
+        if self.alpha_skip is not None:
+            # alpha = 1 - exp(-tau) < a  <=>  tau < -log(1 - a)
+            occ = occ & (tau > -math.log1p(-self.alpha_skip))
+        log_t_excl = -torch.cat([torch.zeros_like(tau[:, :1]),
+                                 torch.cumsum(tau[:, :-1], dim=-1)], dim=-1)
+        n_live = (log_t_excl > math.log(self.term_T)).sum(-1)
+        return occ & (torch.arange(qv.shape[-1], device=qv.device)[None]
+                      < n_live[:, None])
+
+    def _coarse_occupancy(self, grid: DensityGridState) -> torch.Tensor:
+        """The grid's occupancy dilated by ``prepass_dilate`` 3^3
+        max-pools (one cell of margin per side each), so that the dense and
+        uncached prepass's strides cannot step over the occupied shell."""
+        occ = grid.occupancy
+        for _ in range(self.prepass_dilate):
+            occ = max_pool3d(occ.float()) > 0
+        return occ
+
+    def _use_cache(self) -> bool:
+        return self.use_warp_cache and hasattr(self.deformer,
+                                               "bake_packed_cache")
+
+    def _net_shared(self, state: TrainState):
+        """With ``shared_corner_eval`` and a field that has
+        ``apply_shared``: (x_ref (M, 3), x (Q, M, 3)) -> (rgb, sigma)
+        through the eval head; else None."""
+        if not self.shared_corner_eval \
+                or not hasattr(self.field, "apply_shared"):
+            return None
+        return lambda x_ref, x: self.field.apply_shared(
+            x_ref, x, state.center, state.scale, head="fused")
+
     def _frame_key(self, state: TrainState, batch, grid):
         """Bake-memo key: field, state and grid identity, parameter
         versions (in-place updates bump them), betas and body pose by
@@ -636,6 +752,10 @@ class AvatarModel:
         (``ray_basis`` (4 or 5, 3), ``betas``, ``body_pose``,
         ``global_orient``, ``transl``). Near/far come from the
         world->SMPL ray transform, as in JAX."""
+        if self.eval_sampling != "flat" or not self._use_cache():
+            raise ValueError("render_stream is the flat warp-cache render; "
+                             "this model's mode renders through "
+                             "render_rays_frame")
         dev = self.device
         G = self.grid_size
         H, W = image_shape
@@ -648,20 +768,12 @@ class AvatarModel:
         aabb = grid.aabb
         span = aabb[1] - aabb[0]
         # -- 4. warp-cache bake (memoized per pose) --------------------------
-        key = (self._frame_key(state, batch, grid)
-               if session is not None else None)
-        if session is not None and session.last_bake is not None \
-                and session.last_bake[0] == key:
-            cache, sig_table, n_occ = session.last_bake[1]
-            baked = False
-        else:
-            cache, sig_table, n_occ = self._bake(state, dstate, grid)
-            baked = True
-            if session is not None:
-                session.last_bake = (key, (cache, sig_table, n_occ),
-                                     (self.field, state, grid))
-        probe_fn, field_fn = self.deformer.make_packed_cache_fns(
-            cache, aabb, G, self._net(state), self.cache_n_cand)
+        cache, sig_table, n_occ, baked = self._session_bake(
+            state, batch, dstate, grid, session)
+        _, field_fn, occ_fn, _, rows_fn = \
+            self.deformer.make_packed_cache_fns(
+                cache, aabb, G, self._net(state), self.cache_n_cand,
+                net_shared=self._net_shared(state))
 
         # -- 2. coarse prepass on the block lattice ------------------------
         basis_w = _as_tensor(batch["ray_basis"], dev)
@@ -684,22 +796,8 @@ class AvatarModel:
         far_s = torch.clamp(far_s, near_s, rays_blk.far)
         z, step = sample_z(near_s, far_s, self.prepass_steps)
         pts = rays_blk.o[:, None] + z[..., None] * rays_blk.d[:, None]
-        rel = (pts.reshape(-1, 3) - aabb[0]) / span
-        inside = ((rel >= 0.0) & (rel < 1.0)).all(dim=-1)
-        cell = (rel * G).to(torch.int32).clamp(0, G - 1)
-        qv = sig_table[((cell[:, 0] * G + cell[:, 1]) * G
-                        + cell[:, 2]).long()]
-        qv = torch.where(inside, qv, torch.full_like(qv, -1.0)).reshape(z.shape)
-        # keep strides with a valid cache row, up to the per-block index
-        # where the exclusive prefix optical depth of the baked cell sigma
-        # drops the estimated transmittance below term_T
-        tau = qv.clamp_min(0.0) * step
-        log_t_excl = -torch.cat([torch.zeros_like(tau[:, :1]),
-                                 torch.cumsum(tau[:, :-1], dim=-1)], dim=-1)
-        n_live = (log_t_excl > math.log(self.term_T)).sum(-1)
-        occ = ((qv >= 0.0) & (z < far_s[..., None])
-               & (torch.arange(qv.shape[-1], device=dev)[None]
-                  < n_live[:, None]))
+        occ = self._window_occupancy(sig_table, occ_fn, aabb, pts, step)
+        occ = occ & (z < far_s[..., None])
 
         # -- 3'. flat selection ---------------------------------------------
         S_lat = occ.shape[-1]
@@ -735,10 +833,20 @@ class AvatarModel:
         # one cache row per block sample, from the block-center pixel ray;
         # its own cell center anchors every pixel's Newton step
         qc = (p // 2) * p + p // 2
-        rows_blk = probe_fn(pts_q[qc])
+        rows_blk = rows_fn(pts_q[qc])
         cell_c = torch.floor((pts_q[qc] - aabb[0]) / span * G).clamp(0, G - 1)
         centers = aabb[0] + (cell_c + 0.5) / G * span
-        rgb_s, sigma_s, ok = field_fn(rows_blk, centers, pts_q)
+        if self.flat_tile_rows and not self.shared_corner_eval:
+            # the Newton step on rows and centers tiled per pixel offset
+            pp, S = pts_q.shape[:2]
+            rgb_s, sigma_s, ok = field_fn(
+                pts_q.reshape(pp * S, 3), rows_blk.repeat(pp, 1),
+                centers.repeat(pp, 1))
+            rgb_s, sigma_s, ok = (rgb_s.reshape(pp, S, 3),
+                                  sigma_s.reshape(pp, S), ok.reshape(pp, S))
+        else:
+            rgb_s, sigma_s, ok = field_fn(pts_q[qc], rows_blk, centers,
+                                          pts_all=pts_q)
         return FlatStream(sigma=sigma_s, rgb=rgb_s, valid=ok, z=z_s, dt=dt_s,
                           blk_id=blk_id, offsets=offsets, counts=counts,
                           shape=(H, W, p), n_occ=n_occ, baked=baked)
@@ -770,6 +878,133 @@ class AvatarModel:
                 "alpha": A[:, 4], "counter": cnt,
                 "n_samples": int(stream.z.shape[0]), "n_occ": stream.n_occ}
 
+    @torch.no_grad()
+    def render_rays_frame(self, state: TrainState, batch,
+                          grid: DensityGridState,
+                          image_shape: tuple[int, int] | None = None,
+                          session: RenderSession | None = None,
+                          chunk: int = 32768) -> dict:
+        """The ray-bundle eval modes (``eval_sampling`` "windows" or
+        "dense", or ``use_warp_cache=False``) on a batch with per-pixel
+        ``rays_o``/``rays_d`` (n rays): the frame bake, the packed warp
+        cache (memoized in ``session``; not with ``use_warp_cache=False``),
+        a prepass of ``prepass_steps`` strides per ray on the p x p block
+        lattice when ``image_shape`` (H * W = n) has a block, else per ray,
+        then every hit ray rendered in chunks of ``chunk`` rays and the
+        rest left as background. Returns what ``render_frame`` returns;
+        ``n_samples`` counts the evaluated samples."""
+        dev = self.device
+        G = self.grid_size
+        cano = state.deformer_cano
+        dstate = self._prepare(cano, batch)
+        rays_s = self.deformer.transform_rays_w2s(dstate, Rays(
+            o=_as_tensor(batch["rays_o"], dev).reshape(-1, 3),
+            d=_as_tensor(batch["rays_d"], dev).reshape(-1, 3),
+            near=None, far=None))
+        n = rays_s.o.shape[0]
+        aabb = grid.aabb
+        net = self._net(state)
+        use_cache, n_occ = self._use_cache(), 0
+        windows = use_cache and self.eval_sampling == "windows"
+        if use_cache:
+            cache, sig_table, n_occ, _ = self._session_bake(
+                state, batch, dstate, grid, session)
+            probe_fn, pfield_fn, occ_fn, field_pts, _ = \
+                self.deformer.make_packed_cache_fns(
+                    cache, aabb, G, net, self.cache_n_cand)
+        # -- prepass ------------------------------------------------------
+        p = 1
+        if image_shape is not None and image_shape[0] * image_shape[1] == n:
+            p = self._block_size(*image_shape)
+        Hb, Wb = ((image_shape[0] // p, image_shape[1] // p) if p > 1
+                  else (n, 1))
+
+        def sub(x):   # the block lattice: every p-th ray of every p-th row
+            return (x.reshape(Hb * p, Wb * p, *x.shape[1:])[::p, ::p]
+                    .reshape(-1, *x.shape[1:]) if p > 1 else x)
+
+        def up(x):    # each block's value on its p x p pixels
+            return (x.reshape(Hb, Wb, *x.shape[1:]).repeat_interleave(p, 0)
+                    .repeat_interleave(p, 1).reshape(n, *x.shape[1:])
+                    if p > 1 else x)
+
+        o_sub, d_sub = sub(rays_s.o), sub(rays_s.d)
+        nr_sub, fr_sub = sub(rays_s.near), sub(rays_s.far)
+        near_s, far_s = ray_aabb(o_sub, d_sub, aabb[0], aabb[1])
+        near_s = torch.clamp(near_s, nr_sub, fr_sub)
+        far_s = torch.clamp(far_s, near_s, fr_sub)
+        z, step = sample_z(near_s, far_s, self.prepass_steps)
+        pts = o_sub[:, None] + z[..., None] * d_sub[:, None]
+        if windows:
+            occ = self._window_occupancy(sig_table, occ_fn, aabb, pts, step)
+        else:
+            occ = occupancy_lookup(
+                grid._replace(occupancy=self._coarse_occupancy(grid)),
+                pts.reshape(-1, 3)).reshape(z.shape)
+        occ = occ & (z < far_s[..., None])
+        margin = self.prepass_margin_steps * step[:, 0]
+        inf = torch.full_like(z, math.inf)
+        z_lo = torch.maximum(torch.where(occ, z, inf).amin(-1) - margin,
+                             near_s)
+        z_hi = torch.minimum(torch.where(occ, z, -inf).amax(-1) + margin,
+                             far_s)
+        sel = {"hit": occ.any(-1), "z_lo": torch.minimum(z_lo, z_hi),
+               "z_hi": z_hi, "step": step[:, 0]}
+        if windows:
+            idx_w, keep_w = compact_samples(occ, self.n_windows)
+            sel["z_w"] = torch.where(keep_w, z.gather(-1, idx_w),
+                                     torch.full_like(z[:, :1], 1e9))
+            sel["keep_w"] = keep_w
+        sel = {k: up(v) for k, v in sel.items()}
+
+        # -- the hit rays, in chunks ----------------------------------------
+        bg = batch.get("bg_color")
+        bg = (torch.ones((n, 3), device=dev) if bg is None
+              else _as_tensor(bg, dev).reshape(-1, 3).expand(n, 3))
+        if not use_cache:
+            field_fn = self.deformer.make_field_fn(cano, dstate, net,
+                                                   eval_mode=True)
+        k_eval = self.k_cap or self.eval_n_steps
+        ray_idx = torch.nonzero(sel["hit"])[:, 0]
+        outs = []
+        for c0 in range(0, ray_idx.numel(), chunk):
+            ri = ray_idx[c0:c0 + chunk]
+            o, d, bg_c = rays_s.o[ri], rays_s.d[ri], bg[ri]
+            if windows:
+                out = render_rays_windows(
+                    field_pts, o, d, sel["z_w"][ri], sel["keep_w"][ri],
+                    sel["step"][ri, None], bg_color=bg_c)
+            elif not use_cache:
+                out = render_rays(
+                    field_fn, Rays(o=o, d=d, near=rays_s.near[ri],
+                                   far=rays_s.far[ri]),
+                    occupancy_fn=lambda x: occupancy_lookup(grid, x),
+                    aabb=aabb, n_steps=self.n_steps, k_cap=self.k_cap,
+                    bg_color=bg_c)
+            elif self.cache_fused_probe:
+                out = render_rays_probed(
+                    probe_fn, pfield_fn,
+                    Rays(o=o, d=d, near=sel["z_lo"][ri], far=sel["z_hi"][ri]),
+                    aabb=aabb, n_steps=self.eval_n_steps, k_cap=k_eval,
+                    bg_color=bg_c)
+            else:
+                out = render_rays(
+                    field_pts,
+                    Rays(o=o, d=d, near=sel["z_lo"][ri], far=sel["z_hi"][ri]),
+                    occupancy_fn=occ_fn, aabb=aabb,
+                    n_steps=self.eval_n_steps, k_cap=k_eval, bg_color=bg_c)
+            outs.append(out)
+        rgb, depth = bg.clone(), torch.zeros(n, device=dev)
+        alpha, counter = torch.zeros(n, device=dev), torch.zeros(n, device=dev)
+        if outs:
+            for full, k in ((rgb, "rgb"), (depth, "depth"), (alpha, "alpha"),
+                            (counter, "counter")):
+                full[ray_idx] = torch.cat([getattr(o, k) for o in outs]) \
+                    .to(full.dtype)
+        return {"rgb": rgb, "depth": depth, "alpha": alpha,
+                "counter": counter, "n_samples": int(counter.sum()),
+                "n_occ": n_occ}
+
     def _frame_grid(self, state: TrainState, batch,
                     session: RenderSession | None) -> DensityGridState:
         """The frame's own grid (``render_frame(grid=None)``):
@@ -795,24 +1030,36 @@ class AvatarModel:
                      session: RenderSession | None = None, *,
                      chunk: int | None = None,
                      payload: str | None = None) -> dict:
-        """Full-frame inference from a batch that carries ``ray_basis``
-        (the datasets' full-image batches and the CLIs' camera batches);
-        its per-pixel ``rays_o``/``rays_d``/``near``/``far``, if any, are
-        not read. With SMPL parameters in the state, the frame ``idx``'s
-        optimized pose replaces the batch's. ``grid`` None builds the
-        frame's grid (see ``_frame_grid``). ``chunk`` and ``payload`` size
-        the JAX render's buffers and are accepted for its signature only.
-        Returns device tensors rgb (n, 3), depth, alpha, counter (n,) plus
-        the frame's kept-sample and occupied-cell counts."""
-        if image_shape is None:
+        """Full-frame inference. The flat mode (``eval_sampling="flat"``
+        with the warp cache) reads the batch's ``ray_basis`` (the datasets'
+        full-image batches and the CLIs' camera batches) and needs
+        ``image_shape``; its per-pixel ``rays_o``/``rays_d``/``near``/
+        ``far``, if any, are not read. The other modes
+        (``render_rays_frame``) read ``rays_o``/``rays_d``, so a
+        basis-only batch raises there, as in JAX; ``chunk`` (default
+        32768) is their rays per marcher call. With SMPL parameters in the
+        state, the frame ``idx``'s optimized pose replaces the batch's.
+        ``grid`` None builds the frame's grid (see ``_frame_grid``).
+        ``payload`` sizes the JAX render's buffer and is accepted for its
+        signature only. Returns device tensors rgb (n, 3), depth, alpha,
+        counter (n,) plus the frame's sample and occupied-cell counts."""
+        flat = self.eval_sampling == "flat" and self._use_cache()
+        if flat and image_shape is None:
             raise ValueError("the flat render needs image_shape")
-        if "ray_basis" not in batch:
+        if flat and "ray_basis" not in batch:
             raise ValueError("the flat render needs the batch's ray_basis "
                              "(a pinhole camera)")
+        if not flat and "rays_o" not in batch:
+            raise ValueError(
+                "basis-only batches render through the flat path only "
+                "(rays_o/rays_d required otherwise)")
         with torch.no_grad():
             batch = self._resolve_batch(state, batch)
         if grid is None:
             grid = self._frame_grid(state, batch, session)
+        if not flat:
+            return self.render_rays_frame(state, batch, grid, image_shape,
+                                          session, chunk=chunk or 32768)
         stream = self.render_stream(state, batch, grid, image_shape, session)
         return self.composite_frame(stream, batch.get("bg_color"))
 

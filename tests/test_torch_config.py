@@ -127,12 +127,24 @@ def test_builder_knobs_match_jax(monkeypatch):
     ("SNARF_NGP", ["network=mlp"], "network=mlp"),
 ], ids=["SNARF_NGP-over1-triplane", "SNARF_NGP-over2-mlp"])
 def test_unported_options_raise(name, over, what):
-    """Each option the port lacks stops the build with the ROADMAP item
-    that ports it, before anything is built."""
+    """The option no AvatarModel runs, network=mlp, stops the build with
+    its reason (VanillaNeRF.apply's signature against AvatarModel's call,
+    the JAX lines named) before anything is built; network=triplane,
+    refused until the field was ported, now builds a TriPlaneField of the
+    reference widths (32 x 256 x 256 planes, 96 -> 64 -> 16 sigma MLP),
+    where JAX's builder makes an NGPField (ROADMAP fault 3.2)."""
     cfg = load_config(CONFS, name, over)
+    if what == "network=triplane":
+        check_ported(cfg)
+        av = build_avatar(cfg, device="cpu")
+        assert type(av.field).__name__ == "TriPlaneField"
+        assert av.field.plane_xy.shape == (32, 256, 256)
+        assert av.field.sigma_dims == (96, 64, 16)
+        return
     with pytest.raises(NotImplementedError, match=what) as e:
         check_ported(cfg)
-    assert "ROADMAP.md open item" in str(e.value)
+    assert "mlp.py:65" in str(e.value) and "model.py:429" in str(e.value)
+    assert "open item" not in str(e.value)
     with pytest.raises(NotImplementedError, match=what):
         build_avatar(cfg, device="cpu")
 
@@ -198,16 +210,34 @@ def test_ngp_and_smpl_configs_build_as_jax(monkeypatch, name, over):
     assert av.smpl_init == (name == "demo")
 
 
-def test_native_loader_and_unknown_targets_raise():
-    """dataset.opt.native=true raises before any file is read; targets in
-    the JAX package resolve to the port's module of the same path, and one
-    the port lacks raises ImportError naming it."""
+def test_native_loader_and_unknown_targets_raise(tmp_path):
+    """dataset.opt.native=true builds the native engine on every split
+    (where g++ is there; else a warning and the Python path, as in JAX);
+    targets in the JAX package resolve to the port's module of the same
+    path, MocapDataset included, and one the port lacks raises ImportError
+    naming it."""
+    from instantavatar_torch.data import MocapDataset, make_synthetic_sequence
+    from instantavatar_torch.data.native_loader import build_native_lib
+    seq = make_synthetic_sequence(tmp_path / "seq", n_frames=3, H=48, W=48,
+                                  device="cpu")
     cfg = load_config(CONFS, "SNARF_NGP", PIPELINE + [
-        "network=voxel_triplane", "+dataset.opt.native=true"])
-    with pytest.raises(NotImplementedError, match="native"):
-        build_datamodule(cfg)
+        "network=voxel_triplane", "+dataset.opt.native=true",
+        f"dataset.opt.dataroot={seq}"])
+    try:
+        build_native_lib()
+        dm = build_datamodule(cfg)
+        assert all(getattr(dm, f"{s}set").native_active
+                   for s in ("train", "val", "test"))
+    except ImportError:
+        with pytest.warns(UserWarning, match="native loader unavailable"):
+            dm = build_datamodule(cfg)
+    assert dm.trainset[0]["rgb"].shape == (4, 32, 32, 3)
     sampler = instantiate(cfg.dataset.opt.train.sampler)
     assert isinstance(sampler, PatchSampler)
     assert (sampler.n, sampler.patch_size, sampler.p) == (4, 32, 1)
-    with pytest.raises(ImportError, match="instantavatar_tpu.data.Mocap"):
-        instantiate({"_target_": "instantavatar_tpu.data.MocapDataset"})
+    mocap = instantiate({"_target_": "instantavatar_tpu.data.MocapDataset",
+                         "root": str(seq), "split": "train", "end": 1,
+                         "num_samples": 64})
+    assert isinstance(mocap, MocapDataset) and mocap[0]["rgb"].shape == (64, 3)
+    with pytest.raises(ImportError, match="instantavatar_tpu.data.Surreal"):
+        instantiate({"_target_": "instantavatar_tpu.data.SurrealDataset"})

@@ -3,7 +3,9 @@ CUDA kernel against its plain version on the card, the field's
 no-autograd rule for the kernel head, one training step on the card
 against the same step on the CPU, the NGP hash encode and field, the
 nearest-vertex SMPL deformer (deform and bake) and LPIPS on the card
-against the CPU. They skip where there is no card. This
+against the CPU, the eval modes' frames (the head launched in each) and
+the triplane field on the card against the CPU. They skip where there is
+no card. This
 file imports no jax; on a machine that has only PyTorch, skip the
 jax-loading conftest:
 
@@ -278,3 +280,72 @@ def test_lpips_on_card_matches_cpu(cuda):
         (d0, g0), (d1, g1) = res
         torch.testing.assert_close(d0, d1, rtol=1e-4, atol=0)
         assert float((g0 - g1).norm() / g1.norm()) <= 1e-3, net
+
+
+@pytest.mark.parametrize("mode", [
+    {"eval_sampling": "windows"}, {"eval_sampling": "dense"},
+    {"eval_sampling": "dense", "cache_fused_probe": True},
+    {"use_warp_cache": False}, {"shared_corner_eval": True},
+    {"flat_tile_rows": True}, {"term_T": None}],
+    ids=["windows", "dense", "probe", "uncached", "shared", "tiled",
+         "no_term"])
+def test_eval_modes_on_card_match_cpu(cuda, mode):
+    """A 48 px frame of the opaque seeded avatar (golden-96's small
+    configuration) in each ray-bundle and ablation mode on the card, the
+    head being the kernel, against the same mode on the CPU (its plain
+    head): rgb PSNR >= 35 dB (golden-96's card bound) and the head
+    launched at least once."""
+    import numpy as np
+    from instantavatar_torch.data.rays import make_ray_basis, make_ray_grid
+    from chip_smoke import make_avatar, psnr
+    H = 48
+    f = 2000.0 * H / 540
+    K = np.array([[f, 0, H / 2], [0, f, H / 2], [0, 0, 1]])
+    ro, rd = make_ray_grid(K, np.eye(4), H, H)
+    batch = {"ray_basis": make_ray_basis(K, np.eye(4)),
+             "rays_o": ro.reshape(-1, 3), "rays_d": rd.reshape(-1, 3),
+             "betas": np.zeros(10, np.float32),
+             "body_pose": np.zeros(69, np.float32),
+             "global_orient": np.array([0.0, 0.5, 0.0], np.float32),
+             "transl": np.array([0.0, 0.15, 5.0], np.float32)}
+    rgbs = []
+    for dev in (cuda, torch.device("cpu")):
+        av = make_avatar(dev, deformer_res=32, grid_size=32, voxel_res=16,
+                         plane_res=32, param_seed=3, sigma_bias=100.0,
+                         shell_margin=0.08)
+        for k, v in mode.items():
+            setattr(av, k, v)
+        state = av.init(np.zeros(10, np.float32))
+        grid = av.build_pose_grid(state, batch)
+        before = fused_field_head.launches
+        out = av.render_frame(state, batch, grid=grid, image_shape=(H, H))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert fused_field_head.launches > before
+        rgbs.append(out["rgb"].cpu())
+    assert bool(torch.isfinite(rgbs[0]).all())
+    assert psnr(rgbs[0], rgbs[1]) >= 35.0
+
+
+def test_triplane_field_on_card_matches_cpu(cuda):
+    """TriPlaneField at full width (3 x 32 x 256^2) on the card with TF32
+    off against the CPU: colour, sigma 1e-5; the plane gradients 1e-4
+    L2-relative (an fp32 index_add_ in another order)."""
+    import numpy as np
+    from instantavatar_torch.models import TriPlaneField
+    g = np.random.default_rng(2)
+    x = g.uniform(-1.1, 1.1, (20000, 3)).astype(np.float32)
+    res = []
+    for dev in (cuda, torch.device("cpu")):
+        field = TriPlaneField(device=dev)
+        field.init(torch.Generator().manual_seed(0))
+        one = torch.ones(3, device=dev)
+        c, s = field.apply(torch.as_tensor(x, device=dev), 0 * one, 2 * one,
+                           head="mlp")
+        (c.sum() + 0.01 * s.sum()).backward()
+        res.append((c.detach().cpu(), s.detach().cpu(),
+                    field.plane_xy.grad.cpu()))
+    (c0, s0, g0), (c1, s1, g1) = res
+    torch.testing.assert_close(c0, c1, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(s0, s1, rtol=1e-5, atol=1e-5)
+    assert float((g0 - g1).norm() / g1.norm()) <= 1e-4

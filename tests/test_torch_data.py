@@ -2,7 +2,9 @@
 capsule tracer against JAX's jitted tracer, the capsule sequence against
 ``make_synthetic_sequence(style="capsule")`` read back from its PNGs, and
 ``PatchSampler`` plus the train/val batch assembly against
-``AvatarDataset`` on the same numpy seeds."""
+``AvatarDataset`` on the same numpy seeds, and ``MocapDataset`` (its
+default ``EdgeSampler``, mirroring tests/test_samplers_edge_mocap.py) and
+its batches against JAX's."""
 import cv2
 import numpy as np
 import pytest
@@ -129,3 +131,42 @@ def test_batch_assembly_matches_jax(seq_pair, split):
                                           np.asarray(b[k]), err_msg=k)
     shape = (2, 16, 16) if split == "train" else (H * H,)
     assert a["alpha"].shape == shape and a["rgb"].shape == shape + (3,)
+
+
+def test_mocap_dataset_default_edge_sampler(seq_pair):
+    """MocapDataset's train split samples with EdgeSampler(num_samples,
+    0.6, 0.3, 32) by default: flat (256,) ray batches; the val split has
+    no sampler and full frames."""
+    from instantavatar_torch.data import EdgeSampler, MocapDataset
+    root = seq_pair[0]
+    ds = MocapDataset(root, "train", start=0, end=1, num_samples=256)
+    assert isinstance(ds.sampler, EdgeSampler)
+    assert (ds.sampler.num_mask, ds.sampler.num_edge, ds.sampler.num_rand,
+            ds.sampler.kernel_size) == (153, 76, 27, 32)
+    b = ds[0]
+    assert b["rgb"].shape == (256, 3) and b["rays_o"].shape == (256, 3)
+    assert b["alpha"].shape == (256,) and b["body_pose"].shape == (69,)
+    dv = MocapDataset(root, "val", start=0, end=0)
+    assert dv.sampler is None
+    assert dv[0]["rgb"].shape == (H * H, 3)
+
+
+@pytest.mark.parametrize("split", ["train", "val"])
+def test_mocap_batches_match_jax(seq_pair, split):
+    """MocapDataset against JAX's on the PNG directory, the edge sampler
+    and the background on the same numpy seeds: every batch array exact."""
+    from instantavatar_tpu.data.datasets import MocapDataset as JaxMocap
+    from instantavatar_torch.data import MocapDataset
+    root = seq_pair[0]
+    kw = dict(start=0, end=2, num_samples=200)
+    tds = MocapDataset(root, split, bg_rng=np.random.default_rng(2), **kw)
+    jds = JaxMocap(root, split, bg_rng=np.random.default_rng(2), **kw)
+    if split == "train":
+        tds.sampler.rng = np.random.default_rng(1)
+        jds.sampler.rng = np.random.default_rng(1)
+    for i in (1, 0, 2):
+        a, b = tds[i], jds[i]
+        assert set(a) == set(b)
+        for k in a:
+            np.testing.assert_array_equal(np.asarray(a[k]),
+                                          np.asarray(b[k]), err_msg=k)

@@ -193,16 +193,17 @@ def test_golden_frame_96px():
 
 
 def test_unported_paths_raise():
-    """The dense/windows eval is not ported and says so; w_lpips > 0
-    needs an LPIPS module, as in JAX, and with one the model computes the
-    term through ``ngp_loss``; an unknown eval grid is refused (the
-    density grid itself renders, tests/test_torch_grid.py)."""
+    """The dense eval, once refused, now builds (its frames are held
+    against JAX in tests/test_torch_eval_modes.py); w_lpips > 0 needs an
+    LPIPS module, as in JAX, and with one the model computes the term
+    through ``ngp_loss``; an unknown eval grid is refused (the density
+    grid itself renders, tests/test_torch_grid.py)."""
     from instantavatar_torch.losses import load_lpips
     body = toy_smpl_model(device="cpu")
     field = VoxelTriplaneField(voxel_res=4, plane_res=4, device="cpu")
     snarf = SNARFDeformer(body, resolution=16)
-    with pytest.raises(NotImplementedError, match="flat"):
-        AvatarModel(body, field, snarf, eval_sampling="dense")
+    dense = AvatarModel(body, field, snarf, eval_sampling="dense")
+    assert dense.eval_sampling == "dense" and dense.eval_n_steps == 64
     with pytest.raises(ValueError, match="lpips_fn"):
         AvatarModel(body, field, snarf, loss_weights={"w_lpips": 1.0})
     with pytest.warns(UserWarning, match="RANDOM"):
