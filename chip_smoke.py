@@ -87,15 +87,33 @@ points a user calls, and checks it in phases:
      the alpha skip): warm ms/frame, head launches and rows (each must
      launch the head), rgb PSNR against the flat and the dense frame and,
      as in phase 5, against the mode's frame with the plain head
-     (PSNR-bounded).
+     (PSNR-bounded);
+ 15. the parallel layer (``instantavatar_torch.parallel``) on the one
+     card: 20 DP training steps of phase 7's configuration (the first a
+     grid update) on 2 ranks over gloo sharing the card (parameters
+     bit-identical on both afterwards; step 1's losses within 1e-4 of the
+     single-process step on the whole batch fed the ranks' draws, its
+     grid exactly) and on one NCCL rank (step 1 equal to the
+     single-process step to the bit, both with PyTorch's deterministic
+     algorithms); ms/step and the bytes reduced; phase 4's 540 px
+     turntable of 3 on 2 gloo ranks in the stride and band layouts
+     (each rank launching the head, the bake memo engaged, PSNR-bounded
+     against the single-device frames) and the gather of a frame's bands
+     timed; one band's program alone for R = 2, 4, 8 (stride) and 4
+     (band) beside the replicated bake; ``train_multi`` with two copies
+     of phase 11's sequence for 2 epochs, each subject's checkpoint
+     through ``animate``. Spawned ranks report their head launches and
+     rows through files.
 
-Any failed check exits non-zero. The last stdout line is
+Any failed check, a spawned rank's non-zero exit or a spawned run past
+its time limit exits non-zero. The last stdout line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``
 and the line before it lists the kernels, with the kernel's launches in
 each path (turntable, training, val render, phase 11's CLI train run,
 Trainer validation, Trainer test, animate and novel_view, and phase 13's
-SMPL-deformer voxel-triplane frame, and phase 14's eval modes; the NGP
-and triplane paths evaluate the fp32 head and launch no kernel). ``--profile DIR`` also
+SMPL-deformer voxel-triplane frame, phase 14's eval modes, and phase
+15's ranks and paths; the NGP and triplane paths evaluate the fp32 head
+and launch no kernel). ``--profile DIR`` also
 writes torch.profiler summaries and traces of two steady-state frames and
 of one grid-update step plus three plain training steps to DIR.
 
@@ -178,6 +196,21 @@ MODE_MIN_DB = {
     "alpha_skip": (60.0, 25.0),
 }
 MOCAP_STEPS, TRIPLANE_EPOCHS = 20, 2
+# phase 4's avatar (bench.py's configuration), which phases 14 and 15 reuse
+SLICE_AVATAR_ARGS = dict(deformer_res=128, grid_size=64, voxel_res=64,
+                         plane_res=256, param_seed=0, sigma_bias=100.0,
+                         shell_margin=0.08)
+# phase 15: ranks sharing the card, DP training steps (grid updates at
+# steps 0 and 20, the first step cold) and their draws' seed, the loss
+# bound against the single-process step, the DP frame's
+# PSNR floor against the single-device frame, the turntable, the band
+# programs timed alone, train_multi's subjects and epochs, and the
+# spawned runs' time limit
+DP_RANKS, DP_STEPS, DP_SEED, DP_LOSS_RTOL, DP_MIN_DB = 2, 21, 1000, 1e-4, 40.0
+DP_TURNTABLE = 3
+DP_BAND_LAYOUTS = (("stride", 2), ("stride", 4), ("stride", 8), ("band", 4))
+MULTI_SUBJECTS, MULTI_EPOCHS = ("a", "b"), 2
+SPAWN_TIMEOUT = 300.0
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 BF16_FLOP_PER_S = 989e12       # dense bf16 tensor-core peak, same source
 FP32_FLOP_PER_S = 67e12        # fp32 outside the tensor cores, same source
@@ -457,26 +490,13 @@ def make_trainer(device, *, deformer_res=128, grid_size=64, voxel_res=64,
                            steps_per_epoch=steps_per_epoch))
 
 
-def train_phase(device, *, size=TRAIN_SIZE, n_train=TRAIN_FRAMES,
-                n_val=VAL_FRAMES, steps=TRAIN_STEPS,
-                profile_dir: Path | None = None, **config) -> dict:
-    """Phases 7 and 8: train on the capsule scene, render the val frames
-    with the density eval grid. Returns the measured numbers."""
+def capsule_splits(device, size: int, n_train: int, n_val: int):
+    """Phase 7's capsule scene (made on ``device``) and its train split (4
+    x 32^2 patches, seeded sampler and backgrounds) and val split."""
     from instantavatar_torch.data import (FrameDataset, PatchSampler,
                                           make_capsule_sequence)
-    from instantavatar_torch.kernels import fused_field_head
-    cuda = device.type == "cuda"
-
-    def sync():
-        if cuda:
-            torch.cuda.synchronize()
-
-    t0 = time.perf_counter()
     seq = make_capsule_sequence(n_train + n_val, size, size, bone_rings=2,
                                 device=device)
-    print(f"[train] capsule scene {size}px, {n_train}+{n_val} frames: "
-          f"{(time.perf_counter() - t0) * 1e3:.1f} ms, mask coverage "
-          f"{float(seq['masks'].mean()):.3f}")
 
     def split(sl, name, **kw):
         sp = {k: v if k == "betas" else v[sl]
@@ -486,7 +506,26 @@ def train_phase(device, *, size=TRAIN_SIZE, n_train=TRAIN_FRAMES,
     train = split(slice(0, n_train), "train", sampler=PatchSampler(
         4, 32, 0.9, rng=np.random.default_rng(0)),
         bg_rng=np.random.default_rng(1))
-    val = split(slice(n_train, None), "val")
+    return seq, train, split(slice(n_train, None), "val")
+
+
+def train_phase(device, *, size=TRAIN_SIZE, n_train=TRAIN_FRAMES,
+                n_val=VAL_FRAMES, steps=TRAIN_STEPS,
+                profile_dir: Path | None = None, **config) -> dict:
+    """Phases 7 and 8: train on the capsule scene, render the val frames
+    with the density eval grid. Returns the measured numbers."""
+    from instantavatar_torch.kernels import fused_field_head
+    cuda = device.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    seq, train, val = capsule_splits(device, size, n_train, n_val)
+    print(f"[train] capsule scene {size}px, {n_train}+{n_val} frames: "
+          f"{(time.perf_counter() - t0) * 1e3:.1f} ms, mask coverage "
+          f"{float(seq['masks'].mean()):.3f}")
     avatar = make_trainer(device, steps_per_epoch=n_train, **config)
     gen = torch.Generator(device=device).manual_seed(0)
     state = avatar.init(seq["smpl_params"]["betas"], generator=gen)
@@ -1508,6 +1547,379 @@ def modes_phase(dev, avatar, state, grid) -> dict:
     return res
 
 
+# -- phase 15: the parallel layer ------------------------------------------
+
+def _rank_device(name: str) -> torch.device:
+    """A spawned rank's device, with TF32 off as in the parent."""
+    dev = torch.device(name)
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    return dev
+
+
+def _flat_params(avatar) -> torch.Tensor:
+    return torch.cat([p.detach().reshape(-1)
+                      for p in avatar.field.parameters()]).cpu()
+
+
+def _dp_train_rank(rank: int, world: int, work: str, tag: str,
+                   deterministic: bool) -> None:
+    """Phase 15 rank: ``dp_train_in.pt``'s steps of phase 7's flagship
+    configuration over the ray group (the first a grid update), from the
+    parent's checkpoint, this rank's draws from ``rank_draws``, with
+    PyTorch's deterministic algorithms when ``deterministic``. Writes the
+    first step's losses, grid and parameters, the last parameters, the
+    step times, the bytes reduced per step, and the head's launches and
+    rows of the run, and the plain step's bucket all-reduced alone. The
+    deterministic algorithms (slow: a sorted ``index_add_``) hold for the
+    first step only."""
+    import torch.distributed as dist
+    from instantavatar_torch.kernels import fused_field_head
+    from instantavatar_torch.parallel import (make_dp_train_step, make_mesh,
+                                              rank_draws)
+    from instantavatar_torch.train.harness import restore_checkpoint
+    work = Path(work)
+    inp = torch.load(work / "dp_train_in.pt", weights_only=False)
+    dev = _rank_device(inp["device"])
+    torch.use_deterministic_algorithms(deterministic, warn_only=True)
+    avatar = make_trainer(dev, **inp["trainer_kw"])
+    state = restore_checkpoint(inp["ckpt"], avatar.init(inp["betas"]),
+                               avatar.field)
+    mesh = make_mesh(n_ray=world)
+    steps = {u: make_dp_train_step(avatar, mesh, u) for u in (False, True)}
+    n_params = sum(p.numel() for p in avatar.field.parameters())
+    out = {"ms": [], "bytes": [], "update": []}
+    fused_field_head.launches = fused_field_head.rows = 0
+    for i, batch in enumerate(inp["batches"]):
+        update = state.step % avatar.grid_update_interval == 0
+        n_loc = int(np.prod(batch["rays_o"].shape[:-1])) // world
+        draws = rank_draws(avatar, mesh, DP_SEED + i, n_loc, update)
+        _sync(dev)
+        t0 = time.perf_counter()
+        state, losses = steps[update](state, batch, draws)
+        _sync(dev)
+        out["ms"].append(1e3 * (time.perf_counter() - t0))
+        out["update"].append(update)
+        out["bytes"].append(4 * (n_params + len(losses) + (
+            2 * state.grid.occupancy.numel() if update else 0)))
+        if i == 0:
+            out["losses0"] = {k: float(v) for k, v in losses.items()}
+            out["occupancy0"] = state.grid.occupancy.cpu()
+            out["density0"] = state.grid.density_cached.cpu()
+            out["params0"] = _flat_params(avatar)
+            torch.use_deterministic_algorithms(False)
+    out["params"] = _flat_params(avatar)
+    out["launches"], out["rows"] = (fused_field_head.launches,
+                                    fused_field_head.rows)
+    bucket = torch.zeros(out["bytes"][1] // 4, device=dev)
+    ms = []
+    for i in range(7):
+        _sync(dev)
+        t0 = time.perf_counter()
+        dist.all_reduce(bucket, group=mesh.group)
+        _sync(dev)
+        if i >= 2:
+            ms.append(1e3 * (time.perf_counter() - t0))
+    out["all_reduce_ms"] = statistics.median(ms)
+    torch.save(out, work / f"dp_train_{tag}_{rank}.pt")
+
+
+def _dp_render_rank(rank: int, world: int, work: str) -> None:
+    """Phase 15 rank: phase 4's avatar (the parent's canonical bake and
+    grid) renders its band of ``dp_render_in.pt``'s turntable in each
+    layout, a warm frame first, then the turntable with one new session;
+    rank 0 writes the gathered frames. Every rank writes its head launches
+    and rows per layout, and the gather of a frame's bands timed alone."""
+    import torch.distributed as dist
+    from instantavatar_torch.kernels import fused_field_head
+    from instantavatar_torch.parallel import DPFrameRenderer, make_mesh
+    from instantavatar_torch.train import RenderSession, TrainState
+    work = Path(work)
+    inp = torch.load(work / "dp_render_in.pt", weights_only=False)
+    dev = _rank_device(inp["device"])
+    avatar = make_avatar(dev, **inp["avatar_kw"])
+    state = TrainState(deformer_cano=inp["cano"], grid=None,
+                       center=inp["center"], scale=inp["scale"])
+    grid, shape, frames = inp["grid"], inp["image_shape"], inp["frames"]
+    mesh = make_mesh(n_ray=world)
+    out = {}
+    for layout in ("stride", "band"):
+        rend = DPFrameRenderer(avatar, mesh, layout=layout)
+        rend.render_frame(state, frames[0], grid=grid, image_shape=shape,
+                          session=RenderSession())
+        _sync(dev)
+        fused_field_head.launches = fused_field_head.rows = 0
+        t0 = time.perf_counter()
+        outs = list(rend.render_frames(state, frames, grid=grid,
+                                       image_shape=shape,
+                                       session=RenderSession()))
+        _sync(dev)
+        out[layout] = {
+            "ms": 1e3 * (time.perf_counter() - t0) / len(frames),
+            "launches": fused_field_head.launches,
+            "rows": fused_field_head.rows,
+            "bands_baked": [o["bands_baked"] for o in outs],
+            "rgb": [o["rgb"].cpu() for o in outs] if rank == 0 else None}
+    n_loc = shape[0] * shape[1] // world
+    local = torch.zeros((n_loc + 1, 6), device=dev)
+    full = local.new_empty((world * (n_loc + 1), 6))
+    ms = []
+    for i in range(13):
+        _sync(dev)
+        t0 = time.perf_counter()
+        dist.all_gather_into_tensor(full, local, group=mesh.group)
+        _sync(dev)
+        if i >= 3:
+            ms.append(1e3 * (time.perf_counter() - t0))
+    out["gather_ms"] = statistics.median(ms)
+    torch.save(out, work / f"dp_render_{rank}.pt")
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _load_ranks(work: Path, prefix: str, world: int) -> list[dict]:
+    return [torch.load(work / f"{prefix}_{r}.pt", map_location="cpu",
+                       weights_only=False) for r in range(world)]
+
+
+def dp_train_check(dev, work: Path, *, size=TRAIN_SIZE,
+                   n_train=TRAIN_FRAMES, **config) -> dict:
+    """Phase 15.1: DP_STEPS training steps of phase 7's configuration
+    (``config``: ``make_trainer``'s sizes) on DP_RANKS gloo ranks sharing
+    the card, then on one NCCL rank, each rank's first step held against
+    the single-process step. Returns each run's head launches and rows."""
+    from instantavatar_torch.parallel import make_mesh, rank_draws, run_ranks
+    from instantavatar_torch.train import StepDraws
+    from instantavatar_torch.train.harness import (restore_checkpoint,
+                                                   save_checkpoint)
+    _, train, _ = capsule_splits(dev, size, n_train, 1)
+    trainer_kw = {"steps_per_epoch": n_train, **config}
+    avatar = make_trainer(dev, **trainer_kw)
+    betas = train.smpl_params["betas"]
+    state = avatar.init(betas, generator=torch.Generator(
+        device=dev).manual_seed(0))
+    ckpt = save_checkpoint(work / "dp_ckpt", state, avatar.field)
+    batches = [train[i % n_train] for i in range(DP_STEPS)]
+    torch.save({"device": str(dev), "trainer_kw": trainer_kw, "ckpt": ckpt,
+                "betas": betas, "batches": batches}, work / "dp_train_in.pt")
+    n_rays = int(np.prod(batches[0]["rays_o"].shape[:-1]))
+    paths = {}
+    for tag, backend, world in (("gloo", "gloo", DP_RANKS),
+                                ("nccl", "nccl" if dev.type == "cuda"
+                                 else "gloo", 1)):
+        # the one-rank run and its reference take PyTorch's deterministic
+        # algorithms (index_add_'s CUDA atomics sum in any order), so that
+        # two runs of one step can agree to the bit
+        exact = world == 1
+        secs = run_ranks(_dp_train_rank, world, backend=backend,
+                         store_dir=work, args=(str(work), tag, exact),
+                         timeout=SPAWN_TIMEOUT,
+                         threads=torch.get_num_threads())
+        ranks = _load_ranks(work, f"dp_train_{tag}", world)
+        ref = make_trainer(dev, **trainer_kw)
+        rstate = restore_checkpoint(ckpt, ref.init(betas), ref.field)
+        mesh = make_mesh(n_ray=world)
+        parts = [rank_draws(ref, mesh, DP_SEED, n_rays // world, True, ray=r)
+                 for r in range(world)]
+        draws = StepDraws(torch.cat([d.jitter for d in parts]),
+                          torch.cat([d.noise for d in parts]),
+                          parts[0].grid_jitter)
+        torch.use_deterministic_algorithms(exact, warn_only=True)
+        try:
+            rstate, rl = ref.train_step_update(rstate, batches[0], draws)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        rl = {k: float(v) for k, v in rl.items()}
+        r0 = ranks[0]
+        gap = max(abs(r0["losses0"][k] / rl[k] - 1.0) for k in
+                  ("mse_loss", "loss_alpha", "reg_alpha", "reg_occupancy",
+                   "loss"))
+        occ_ok = torch.equal(r0["occupancy0"], rstate.grid.occupancy.cpu())
+        dens = float((r0["density0"]
+                      - rstate.grid.density_cached.cpu()).abs().max())
+        # step 0 is cold (and deterministic in the one-rank run)
+        plain = [m for m, u in zip(r0["ms"][1:], r0["update"][1:]) if not u]
+        upd = [m for m, u in zip(r0["ms"][1:], r0["update"][1:]) if u]
+        print(f"[dp train] {tag}: {world} rank(s) on "
+              f"{torch.cuda.get_device_name(0) if dev.type == 'cuda' else dev}"
+              f", {DP_STEPS} steps of phase 7's configuration "
+              f"({n_rays // world} rays per rank): median "
+              f"{statistics.median(plain):.2f} ms per plain step, "
+              f"{statistics.median(upd or [math.nan]):.2f} ms per warm "
+              f"grid-update step, the cold first {r0['ms'][0]:.0f} ms; "
+              f"{r0['bytes'][1] / 2 ** 20:.2f} MiB reduced per plain step "
+              f"({r0['bytes'][0] / 2 ** 20:.2f} with the grid), its "
+              f"all_reduce alone {r0['all_reduce_ms']:.2f} ms (median of "
+              f"5); the ranks ran {secs:.1f} s with start-up")
+        print(f"[dp train] {tag}: step 1 against the single-process step "
+              f"on the whole batch with the ranks' draws: worst loss gap "
+              f"{gap:.2e} (tol {DP_LOSS_RTOL if world > 1 else 0}), grid "
+              f"occupancy equal {occ_ok}, density max|diff| {dens:.3e}")
+        check(occ_ok and dens == 0.0, f"{tag}: the DP grid update differs")
+        if world > 1:
+            check(gap <= DP_LOSS_RTOL, f"{tag}: DP losses disagree")
+            same = all(torch.equal(r["params"], r0["params"])
+                       for r in ranks[1:])
+            print(f"[dp train] {tag}: parameters bit-identical on the "
+                  f"{world} ranks after {DP_STEPS} steps: {same}; two ranks "
+                  f"share one card here, so the step time is no scaling "
+                  f"number")
+            check(same, "the DP ranks' parameters drifted apart")
+        else:
+            same = (r0["losses0"] == rl
+                    and torch.equal(r0["params0"], _flat_params(ref)))
+            print(f"[dp train] {tag}: one rank's step (its all_reduce the "
+                  f"identity) equals the single-process step exactly "
+                  f"(losses, grid, parameters; deterministic algorithms in "
+                  f"both): {same}")
+            check(same, "the one-rank DP step differs from the "
+                  "single-process step")
+        launches = sum(r["launches"] for r in ranks)
+        check(dev.type != "cuda" or launches > 0,
+              f"dp_train_{tag} never launched the CUDA head")
+        paths[f"dp_train_{tag}"] = (launches, sum(r["rows"] for r in ranks))
+    return paths
+
+
+def dp_render_check(dev, avatar, state, grid, batch, work: Path) -> dict:
+    """Phase 15.2 and 15.3: phase 4's 540 px turntable over DP_RANKS gloo
+    ranks in both layouts against the single-device frames, then one
+    band's program alone for each of DP_BAND_LAYOUTS. Returns the paths'
+    head launches and rows, and the timings."""
+    from instantavatar_torch.parallel import (DPFrameRenderer, make_mesh,
+                                              run_ranks)
+    from instantavatar_torch.train import RenderSession
+    frames = [{**batch, "global_orient": np.array(
+        [0.0, 2 * np.pi * i / DP_TURNTABLE, 0.0], np.float32)}
+        for i in range(DP_TURNTABLE)]
+    torch.save({"device": str(dev), "avatar_kw": SLICE_AVATAR_ARGS,
+                "cano": state.deformer_cano, "center": state.center,
+                "scale": state.scale, "grid": grid, "image_shape": (H, W),
+                "frames": frames}, work / "dp_render_in.pt")
+    secs = run_ranks(_dp_render_rank, DP_RANKS, backend="gloo",
+                     store_dir=work, args=(str(work),),
+                     timeout=SPAWN_TIMEOUT)
+    ranks = _load_ranks(work, "dp_render", DP_RANKS)
+    singles = [avatar.render_frame(state, f, grid=grid, image_shape=(H, W),
+                                   session=RenderSession())["rgb"].cpu()
+               for f in frames]
+    paths, res = {}, {"gather_ms": ranks[0]["gather_ms"]}
+    for layout in ("stride", "band"):
+        r0 = ranks[0][layout]
+        dbs = [psnr(a, b) for a, b in zip(r0["rgb"], singles)]
+        err = max(float((a - b).abs().max())
+                  for a, b in zip(r0["rgb"], singles))
+        baked = r0["bands_baked"]
+        per_rank = [r[layout]["launches"] for r in ranks]
+        print(f"[dp render] {layout}: {DP_RANKS} gloo ranks, {H} px "
+              f"turntable of {DP_TURNTABLE}: {r0['ms']:.2f} ms/frame "
+              f"(bake, band, gather; two ranks share the card); PSNR "
+              f"against the single-device frames {[round(d, 2) for d in dbs]}"
+              f" dB (bound {DP_MIN_DB}), max|rgb diff| {err:.3e}; bands that "
+              f"baked per frame {baked}; head launches per rank {per_rank}")
+        check(min(dbs) >= DP_MIN_DB, f"{layout}: DP frame below its floor")
+        check(baked[0] == DP_RANKS and sum(baked[1:]) == 0,
+              f"{layout}: the bake memo did not engage over the turntable")
+        check(dev.type != "cuda" or all(n > 0 for n in per_rank),
+              f"{layout}: a rank never launched the CUDA head")
+        paths[f"dp_render_{layout}"] = (
+            sum(per_rank), sum(r[layout]["rows"] for r in ranks))
+    print(f"[dp render] the gather of a {H} px frame's {DP_RANKS} bands "
+          f"(all_gather_into_tensor over gloo, through the host): "
+          f"{res['gather_ms']:.3f} ms (median of 10); the ranks ran "
+          f"{secs:.1f} s with start-up")
+
+    def bands():
+        sess = RenderSession()
+        avatar.render_frame(state, batch, grid=grid, image_shape=(H, W),
+                            session=sess)
+        dstate = avatar._prepare(state.deformer_cano, batch)
+        bake = []
+        for _ in range(3):
+            _sync(dev)
+            t0 = time.perf_counter()
+            avatar._bake(state, dstate, grid)
+            _sync(dev)
+            bake.append(1e3 * (time.perf_counter() - t0))
+        res["bake_ms"] = statistics.median(bake)
+        for layout, R in DP_BAND_LAYOUTS:
+            # as tools/dp_overhead_bench.py: rows padded to split into R
+            # bands of 3-row blocks (540 -> 552 at R = 8), the padding
+            # charged to the bands
+            Hp = H
+            while Hp % R or (Hp // R) % 3:
+                Hp += 1
+            rend = DPFrameRenderer(avatar, make_mesh(n_ray=R), layout=layout)
+            rend.render_band(state, batch, 0, grid=grid, image_shape=(Hp, W),
+                             session=sess)
+            ms = []
+            for c in range(R):
+                t = []
+                for _ in range(3):
+                    _sync(dev)
+                    t0 = time.perf_counter()
+                    rend.render_band(state, batch, c, grid=grid,
+                                     image_shape=(Hp, W), session=sess)
+                    _sync(dev)
+                    t.append(1e3 * (time.perf_counter() - t0))
+                ms.append(statistics.median(t))
+            res[f"band_{layout}_{R}"] = ms
+            print(f"[dp band] {layout} R={R} ({Hp} x {W} px): ms per band "
+                  f"{[round(m, 2) for m in ms]}, busiest {max(ms):.2f}, "
+                  f"mean {statistics.mean(ms):.2f}; an R-card frame "
+                  f"~ busiest band + gather {max(ms) + res['gather_ms']:.2f} "
+                  f"ms (+ the replicated bake {res['bake_ms']:.2f} ms on a "
+                  f"new pose); one card's frame: phase 4")
+    _, *paths["dp_band_programs"] = _counted(bands)
+    return {"paths": paths, **res}
+
+
+def multi_phase(dev, work: Path, cli: dict) -> dict:
+    """Phase 15.4: ``train_multi`` on two copies of phase 11's sequence
+    (one card, the subjects stepped in turn) for MULTI_EPOCHS epochs;
+    each subject's checkpoint through ``animate``."""
+    import shutil
+
+    from instantavatar_torch.cli import animate, train_multi
+    root, run = work / "multi", work / "multi_run"
+    for s in MULTI_SUBJECTS:
+        shutil.copytree(work / "seq", root / s)
+    over = cli_overrides(f"{root}/${{dataset.subject}}",
+                         f"{run}/${{dataset.subject}}")
+    args = ["--config-name", "SNARF_NGP",
+            f"+subjects={','.join(MULTI_SUBJECTS)}",
+            f"train.max_epochs={MULTI_EPOCHS}", "network=voxel_triplane",
+            *over]
+    out, *paths = _counted(lambda: train_multi.main(args))
+    ms = out[0]["ms_per_step"]
+    check([o["subject"] for o in out] == list(MULTI_SUBJECTS)
+          and all(o["state"].step == MULTI_EPOCHS * CLI_TRAIN for o in out),
+          "train_multi did not train every subject")
+    print(f"[multi] train_multi, {len(out)} subjects on one card, "
+          f"{MULTI_EPOCHS} epochs: {ms:.2f} ms per combined step "
+          f"({ms / len(out):.2f} per subject; phase 11's single-subject "
+          f"CLI: {cli['ms_per_step']:.2f} ms/step)")
+    res = {"paths": {"train_multi": tuple(paths)}, "ms_per_step": ms}
+    for s in MULTI_SUBJECTS:
+        a, *p = _counted(lambda: animate.main(
+            ["--config-name", "SNARF_NGP",
+             f"+pose_sequence={work / 'poses.npz'}", "+render_downscale=2",
+             "network=voxel_triplane",
+             *cli_overrides(root / s, run / s)]))
+        check(a["frames"] == CLI_POSES and a["nonfinite_frames"] == 0,
+              f"animate of subject {s}'s checkpoint failed")
+        res["paths"][f"train_multi_animate_{s}"] = tuple(p)
+        print(f"[multi] subject {s}: its checkpoint through animate, "
+              f"{a['frames']} frames, alpha coverage "
+              f"{min(a['alpha_coverage']):.3f}-{max(a['alpha_coverage']):.3f}")
+    return res
+
+
+
 def main(profile_dir: Path | None) -> int:
     # -- 1. device --------------------------------------------------------
     if not torch.cuda.is_available():
@@ -1542,9 +1954,7 @@ def main(profile_dir: Path | None) -> int:
     head = kernel_phase(dev)
 
     # -- 4. the 540 px slice --------------------------------------------------
-    avatar = make_avatar(dev, deformer_res=128, grid_size=64, voxel_res=64,
-                         plane_res=256, param_seed=0, sigma_bias=100.0,
-                         shell_margin=0.08)
+    avatar = make_avatar(dev, **SLICE_AVATAR_ARGS)
     t0 = time.perf_counter()
     state = avatar.init(np.zeros(10, np.float32))
     torch.cuda.synchronize()
@@ -1673,11 +2083,16 @@ def main(profile_dir: Path | None) -> int:
         # -- 14. the data engine, MocapDataset, the triplane field --------
         data_phase(dev, Path(work))
         triplane_phase(dev, Path(work))
+        # -- 15. the parallel layer -----------------------------------------
+        par = {**dp_train_check(dev, Path(work)),
+               **dp_render_check(dev, avatar, state, grid, batch,
+                                 Path(work))["paths"],
+               **multi_phase(dev, Path(work), cli)["paths"]}
     # -- 14. the eval modes on phase 4's avatar --------------------------------
     modes = modes_phase(dev, avatar, state, grid)
 
     # -- 10. the kernel at each path's rows per launch ------------------------
-    paths = {**cli["paths"], **demo["paths"],
+    paths = {**cli["paths"], **demo["paths"], **par,
              **{f"mode_{m}": (r["launches"], r["rows"])
                 for m, r in modes.items()}}
     by_path = {"turntable": launches, "train": train["train_launches"],

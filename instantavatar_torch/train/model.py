@@ -392,8 +392,8 @@ class AvatarModel:
 
     def render(self, state: TrainState, batch, *, dstate=None,
                grid: DensityGridState | None = None,
-               draws: StepDraws | None = None, noise_std: float = 0.0
-               ) -> dict:
+               draws: StepDraws | None = None, noise_std: float = 0.0,
+               eval_mode: bool = False) -> dict:
         """Training render (the JAX ``eval_mode=False`` branch) of one ray
         bundle (``rays_o``/``rays_d`` of any leading shape, flat or patch
         stacks) through the dense marcher, the head evaluated through
@@ -401,17 +401,22 @@ class AvatarModel:
         ``_grad_correct`` (SNARF), the cached-search closure; else the
         deformer's per-sample closure (the SMPL deformer's nearest-vertex
         warp). Near/far come from the world->SMPL ray
-        transform; batch near/far are overwritten by it, as in JAX."""
+        transform; batch near/far are overwritten by it, as in JAX.
+        ``eval_mode`` (JAX's eval branch, the DP render's): no autograd,
+        the full search per sample without the pose correction, the eval
+        head (``head="fused"``)."""
+        if eval_mode:
+            with torch.no_grad():
+                cano = state.deformer_cano
+                dstate = (self._prepare(cano, batch) if dstate is None
+                          else dstate)
+                return self._render_rays(
+                    state, batch, dstate, grid, self.deformer.make_field_fn(
+                        cano, dstate, self._net(state), eval_mode=True),
+                    draws, noise_std)
         cano = state.deformer_cano
         if dstate is None:
             dstate = self._prepare(cano, batch)
-        dev = self.device
-        t = {k: _as_tensor(batch[k], dev) for k in ("rays_o", "rays_d")}
-        shape = t["rays_o"].shape[:-1]
-        rays_s = self.deformer.transform_rays_w2s(dstate, Rays(
-            o=t["rays_o"], d=t["rays_d"], near=None, far=None))
-        bg = batch.get("bg_color")
-        bg = None if bg is None else _as_tensor(bg, dev).reshape(-1, 3)
         net = self._net(state, "mlp")
         if (self.train_warp_cache and grid is not None
                 and hasattr(self.deformer, "_grad_correct")):
@@ -419,6 +424,19 @@ class AvatarModel:
                                                        grid)
         else:
             field_fn = self.deformer.make_field_fn(cano, dstate, net)
+        return self._render_rays(state, batch, dstate, grid, field_fn,
+                                 draws, noise_std)
+
+    def _render_rays(self, state: TrainState, batch, dstate, grid,
+                     field_fn, draws: StepDraws | None, noise_std: float
+                     ) -> dict:
+        dev = self.device
+        t = {k: _as_tensor(batch[k], dev) for k in ("rays_o", "rays_d")}
+        shape = t["rays_o"].shape[:-1]
+        rays_s = self.deformer.transform_rays_w2s(dstate, Rays(
+            o=t["rays_o"], d=t["rays_d"], near=None, far=None))
+        bg = batch.get("bg_color")
+        bg = None if bg is None else _as_tensor(bg, dev).reshape(-1, 3)
         out = render_rays(
             field_fn, rays_s,
             occupancy_fn=(None if grid is None

@@ -344,7 +344,8 @@ def test_cli_flow_runs_without_the_jax_side_libraries(tmp_path):
     """The whole CPU flow (train, resume, test, animate, novel_view, eval,
     fit) in a fresh interpreter with yaml, cv2, imageio, tensorboardX,
     PIL, orbax and jax (and the JAX package) blocked: the entry path needs
-    only torch, numpy and scipy."""
+    only torch, numpy and scipy; the parallel layer, ``train_multi`` and
+    the library modules import there too."""
     over = [a.replace("{SEQ}", str(tmp_path / "seq"))
             .replace("{RUN}", str(tmp_path / "run"))
             for a in _overrides("{SEQ}", "{RUN}")]
@@ -355,6 +356,12 @@ for m in {BLOCKED!r}:
 import numpy as np, torch
 torch.set_num_threads(2)
 from instantavatar_torch.cli import animate, eval, fit, novel_view, train
+from instantavatar_torch.cli import train_multi
+from instantavatar_torch import parallel
+from instantavatar_torch.body import extra_joints
+from instantavatar_torch.ops import mesh_distance
+from instantavatar_torch.render import volume_renderer
+from instantavatar_torch.utils import marching_cubes, profiling
 from instantavatar_torch.data import make_synthetic_sequence
 from instantavatar_torch.train import RenderSession
 make_synthetic_sequence({str(tmp_path / 'seq')!r}, n_frames=3, H=48, W=48,
