@@ -58,10 +58,19 @@ points a user calls, and checks it in phases:
      frame, with its device launches per call and its byte bound, and the
      committed JAX NGP golden frame (48 px), PSNR-bounded;
  13. the in-the-wild demo (``bash/run-neuman-demo.sh``) on a copy of phase
-     11's sequence read as ``dataset=custom/video``: ``fit`` with
+     11's sequence read as ``dataset=custom/video``, made to look like a
+     preprocessed video first (the toy body written as
+     ``SMPL_NEUTRAL.npz``, ROMP-like ``thetas`` poses perturbed from the
+     ground truth by REFINE_SIGMA, keypoints projected from it) and run
+     through ``python -m instantavatar_torch.preprocess.process_sequence``
+     as a subprocess on the card (only refine with ``--silhouette`` and
+     the overlay may run; refine ms per iteration of each stage, keypoint
+     and transl errors before and after, the transl error at most half,
+     ``body_pose[:, 60:]`` zero, an overlay per frame); then ``fit`` with
      ``SNARF_NGP_fitting deformer=smpl`` at the conf's defaults (LPIPS with
      the random VGG trunk, the depth term, SMPL lr 1e-4; every frame
-     exported, both patch terms finite, the SMPL parameters moved),
+     exported, both patch terms finite, starting from
+     ``poses_optimized.npz``, the SMPL parameters moved),
      ``train --config-name demo sampler.dilate=8`` on the fitted poses
      (per-frame smpl_init grids (F, 64, 64, 64), each partly occupied,
      the seeded stack held by the 500-step latch, val PSNR above an
@@ -72,7 +81,13 @@ points a user calls, and checks it in phases:
      with their device launches per call (plain PyTorch, XLA in the JAX
      package: not TPU kernels); the committed JAX SMPL-deformer golden
      frame (48 px), PSNR-bounded; one 540 px SMPL-deformer frame with the
-     voxel-triplane field, which must launch the fused head;
+     voxel-triplane field, which must launch the fused head; then the
+     full-width refine: ``refine`` at the script's defaults (200 + 100
+     iterations) on REFINE_FRAMES frames (the custom conf's train range)
+     of the 7,008-vertex toy body (all 25 BODY25 slots) against
+     REFINE_SIZE px capsule masks traced on the card: ms per iteration of
+     each stage, peak memory, the errors before and after (the transl
+     error at most half);
  14. the rest of the single-device package: the native data engine (phase
      11's train split must run on it; one more epoch of the train CLI
      with ``+dataset.opt.native=false`` for the Python path's numbers; a
@@ -123,6 +138,8 @@ from __future__ import annotations
 
 import json
 import math
+import os
+import re
 import statistics
 import subprocess
 import sys
@@ -196,6 +213,13 @@ MODE_MIN_DB = {
     "alpha_skip": (60.0, 25.0),
 }
 MOCAP_STEPS, TRIPLANE_EPOCHS = 20, 2
+# phase 13's preprocessing: the ROMP-like start (sigma in m for transl, in
+# rad for global_orient and body_pose) and its seed, the subprocess's time
+# limit; the full-width refine: confs/dataset/custom/video.yaml's train
+# frames (0-199) at 540 px on the 7,008-vertex toy body (SMPL: 6,890)
+REFINE_SIGMA, REFINE_SEED, PREPROCESS_TIMEOUT = 0.05, 13, 600.0
+REFINE_FRAMES, REFINE_SIZE = 200, 540
+REFINE_ITERS, REFINE_SIL_ITERS = 200, 100   # the script's defaults
 # phase 4's avatar (bench.py's configuration), which phases 14 and 15 reuse
 SLICE_AVATAR_ARGS = dict(deformer_res=128, grid_size=64, voxel_res=64,
                          plane_res=256, param_seed=0, sigma_bias=100.0,
@@ -839,6 +863,26 @@ def device_launches(fn) -> int:
                if e.device_type == torch.autograd.DeviceType.CUDA)
 
 
+def device_busy(fn, top: int = 5) -> tuple[int, float, list]:
+    """Device kernels one call of ``fn`` launches, the ms they run for in
+    all, and the ``top`` kernel names by summed ms with (count, ms)
+    (torch.profiler), after one warm call."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+    fn()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name: dict[str, tuple[int, float]] = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            n, ms = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (n + 1, ms + e.time_range.elapsed_us() / 1e3)
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])
+    return (sum(n for n, _ in by_name.values()),
+            sum(ms for _, ms in by_name.values()), ranked[:top])
+
+
 def encode_bound(rows: int, touched: int, backward: bool) -> float:
     """Least time (ms) of ``hash_encode`` on ``rows`` points that touch
     ``touched`` distinct table rows, at the HBM rate (the FLOPs, ~1 KFLOP
@@ -1186,6 +1230,212 @@ def op_timings(dev, fit_x: torch.Tensor, lpips_shape, grid_size: int
     return out
 
 
+def romp_start(gt: dict, seed: int) -> dict:
+    """The ground-truth poses as a ROMP estimate would leave them: transl,
+    global_orient and body_pose perturbed by REFINE_SIGMA (seeded)."""
+    rng = np.random.default_rng(seed)
+    out = {k: np.asarray(v, np.float32) for k, v in gt.items()}
+    for k in ("transl", "global_orient", "body_pose"):
+        out[k] = (out[k] + REFINE_SIGMA * rng.standard_normal(out[k].shape)
+                  ).astype(np.float32)
+    return out
+
+
+def body_keypoints(body, params: dict, K: np.ndarray):
+    """Projected BODY25 keypoints (N, 25, 3: x, y, conf 1 on the body's
+    slots, 0 elsewhere) of ``params`` on ``body``, and the slots."""
+    from instantavatar_torch.body import smpl_forward
+    from instantavatar_torch.body.extra_joints import body25_keypoints_or_core
+    dev = body.v_template.device
+    with torch.no_grad():
+        out = smpl_forward(body, *(torch.as_tensor(
+            np.asarray(params[k], np.float32), device=dev) for k in (
+            "betas", "body_pose", "global_orient", "transl")))
+        j, slots = body25_keypoints_or_core(out.joints, out.vertices)
+    p = j.double().cpu().numpy() @ K.T
+    kp = np.zeros((p.shape[0], 25, 3), np.float32)
+    kp[:, slots, :2] = p[..., :2] / p[..., 2:3]
+    kp[:, slots, 2] = 1.0
+    return kp, slots
+
+
+def keypoint_px(body, params: dict, K: np.ndarray, kp: np.ndarray) -> float:
+    """Mean reprojection error (px) of ``params``' keypoints against
+    ``kp`` over the slots with confidence."""
+    got, slots = body_keypoints(body, params, K)
+    return float(np.linalg.norm(got[:, slots, :2] - kp[:, slots, :2],
+                                axis=-1).mean())
+
+
+def transl_err(params: dict, gt: dict) -> float:
+    return float(np.abs(params["transl"] - gt["transl"]).mean())
+
+
+def preprocess_phase(dev, work: Path, seq: Path) -> dict:
+    """Phase 13, preprocessing: ``seq`` made to look like a preprocessed
+    video (the CLIs' toy body written as ``SMPL_NEUTRAL.npz``, ROMP-like
+    ``thetas`` poses, OpenPose-like keypoints from the ground truth, the
+    sequence's masks), then ``python -m
+    instantavatar_torch.preprocess.process_sequence`` as a subprocess on
+    the card: only refine (``--silhouette``) and the overlay run. The
+    overlay stage reads the model from its default path relative to the
+    working directory, as JAX's orchestrator has it, so the subprocess
+    runs in ``work`` with the model under ``work/data/SMPLX/smpl``."""
+    from instantavatar_torch.body import load_smpl_model
+    from instantavatar_torch.body.toy import write_toy_smpl_npz
+    models = work / "data" / "SMPLX" / "smpl"
+    models.mkdir(parents=True, exist_ok=True)
+    write_toy_smpl_npz(models / "SMPL_NEUTRAL.npz")
+    body = load_smpl_model(models, device=dev)
+    gt = dict(np.load(seq / "poses.npz"))
+    K = np.load(seq / "cameras.npz")["intrinsic"]
+    kp, slots = body_keypoints(body, gt, K)
+    np.save(seq / "keypoints.npy", kp)
+    start = romp_start(gt, REFINE_SEED)
+    np.savez(seq / "poses.npz", betas=start["betas"], transl=start["transl"],
+             thetas=np.concatenate([start["global_orient"],
+                                    start["body_pose"]], axis=-1))
+    n = len(list((seq / "images").glob("*.png")))
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        p for p in (str(ROOT), os.environ.get("PYTHONPATH")) if p)}
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "instantavatar_torch.preprocess."
+         "process_sequence", "--data-dir", str(seq), "--smpl-path",
+         str(models)], cwd=work, env=env, capture_output=True, text=True,
+        timeout=PREPROCESS_TIMEOUT)
+    wall = time.perf_counter() - t0
+    for line in proc.stdout.splitlines():
+        if line.startswith("+ ") or " stage: " in line:
+            print(f"[preprocess] {line}")
+    if proc.returncode:
+        print(proc.stdout[-4000:], proc.stderr[-4000:], sep="\n",
+              file=sys.stderr)
+    check(proc.returncode == 0, f"process_sequence exited {proc.returncode}")
+    stages = [line.split()[3] for line in proc.stdout.splitlines()
+              if line.startswith("+ ")]
+    check(stages == ["instantavatar_torch.preprocess.refine_smpl",
+                     "instantavatar_torch.preprocess.visualize_smpl"],
+          f"process_sequence ran {stages}, not refine and the overlay alone")
+    ms = {m[1]: float(m[2]) for m in re.finditer(
+        r"\[refine\] (kp|sil) stage: \d+ iterations in [\d.]+ s "
+        r"\(([\d.]+) ms/iteration, cuda\)", proc.stdout)}
+    check(set(ms) == {"kp", "sil"},
+          "refine did not run both stages on cuda")
+    opt = dict(np.load(seq / "poses_optimized.npz"))
+    overlays = len(list((seq / "smpl_overlay").glob("*.png")))
+    res = {"wall_s": wall, "kp_ms_per_iter": ms["kp"],
+           "sil_ms_per_iter": ms["sil"],
+           "kp_px": (keypoint_px(body, start, K, kp),
+                     keypoint_px(body, opt, K, kp)),
+           "transl_m": (transl_err(start, gt), transl_err(opt, gt)),
+           "overlays": overlays, "frames": n}
+    print(f"[preprocess] process_sequence on {torch.cuda.get_device_name(0)}"
+          f": {n} frames, {len(slots)} keypoint slots, the whole subprocess "
+          f"{wall:.1f} s; refine {ms['kp']:.3f} ms per keypoint iteration, "
+          f"{ms['sil']:.3f} ms per silhouette iteration (stage wall / "
+          f"iterations, the first included); keypoint error "
+          f"{res['kp_px'][0]:.3f} -> {res['kp_px'][1]:.3f} px, transl error "
+          f"{res['transl_m'][0]:.5f} -> {res['transl_m'][1]:.5f} m; "
+          f"body_pose[:, 60:] zero: {not opt['body_pose'][:, 60:].any()}; "
+          f"{overlays} overlays")
+    check(res["transl_m"][1] < 0.5 * res["transl_m"][0],
+          "refine did not halve the transl error")
+    check(res["kp_px"][1] < res["kp_px"][0],
+          "refine did not reduce the keypoint error")
+    check(not opt["body_pose"][:, 60:].any(), "body_pose[:, 60:] is not 0")
+    check(overlays == n, f"{overlays} overlays for {n} frames")
+    return res
+
+
+def refine_full_phase(dev) -> dict:
+    """Phase 13, the full-width refine: REFINE_FRAMES frames of the
+    synthetic motion on the 7,008-vertex toy body (all 25 BODY25 slots),
+    REFINE_SIZE px capsule masks traced on the card from the ground-truth
+    body, ROMP-like start, ``refine`` at the script's defaults (200
+    keypoint + 100 silhouette iterations); ms per iteration per stage,
+    peak memory, errors before and after."""
+    from instantavatar_torch.body import toy_smpl_model
+    from instantavatar_torch.data import make_capsule_sequence
+    from instantavatar_torch.preprocess import refine_smpl
+    from instantavatar_torch.preprocess.masks import contour_samples
+    n, S = REFINE_FRAMES, REFINE_SIZE
+    t0 = time.perf_counter()
+    seq = make_capsule_sequence(n_frames=n, H=S, W=S, ring_size=16,
+                                bone_rings=18, device=dev)
+    mask_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    contours = np.stack([contour_samples(m) for m in seq["masks"]])
+    contour_s = time.perf_counter() - t0
+    body = toy_smpl_model(ring_size=16, bone_rings=18, device=dev)
+    gt, K = seq["smpl_params"], seq["K"]
+    kp, slots = body_keypoints(body, gt, K)
+    check(body.num_verts == 7008 and len(slots) == 25,
+          "the full-width body does not take the 25-slot BODY25 path")
+    start = romp_start(gt, REFINE_SEED + 1)
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    refined, secs = refine_smpl.refine(
+        body, {k: t(start[k]) for k in refine_smpl.KEYS}, t(K), t(kp),
+        iters=REFINE_ITERS, contours=t(contours),
+        sil_iters=REFINE_SIL_ITERS)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    opt = {k: v.cpu().numpy() for k, v in refined.items()}
+    res = {"kp_ms_per_iter": 1e3 * secs["kp"] / REFINE_ITERS,
+           "sil_ms_per_iter": 1e3 * secs["sil"] / REFINE_SIL_ITERS,
+           "peak_mib": peak,
+           "kp_px": (keypoint_px(body, start, K, kp),
+                     keypoint_px(body, opt, K, kp)),
+           "transl_m": (transl_err(start, gt), transl_err(opt, gt))}
+    print(f"[refine full] {n} frames, {body.num_verts} vertices "
+          f"(25 BODY25 slots), {S} px capsule masks traced on the card in "
+          f"{mask_s:.1f} s, contours on the host {contour_s:.1f} s; on "
+          f"{torch.cuda.get_device_name(0)}: {res['kp_ms_per_iter']:.3f} ms "
+          f"per keypoint iteration, {res['sil_ms_per_iter']:.3f} ms per "
+          f"silhouette iteration (stage wall / iterations, the first "
+          f"included), peak memory {peak:.1f} MiB; keypoint error "
+          f"{res['kp_px'][0]:.3f} -> {res['kp_px'][1]:.3f} px, transl error "
+          f"{res['transl_m'][0]:.5f} -> {res['transl_m'][1]:.5f} m")
+    # one warm iteration of each stage: wall, device kernels and their time
+    p = {k: t(start[k]).requires_grad_() for k in refine_smpl.KEYS}
+    adam = torch.optim.Adam(p.values(), lr=1e-2)
+    Kt, kpt, ct = t(K), t(kp), t(contours)
+    losses = {"kp": lambda: refine_smpl.keypoint_loss(body, p, Kt, kpt, 0.1),
+              "sil": lambda: refine_smpl.silhouette_loss(body, p, Kt, ct)
+              + refine_smpl.keypoint_loss(body, p, Kt, kpt, 0.1)}
+    for name, loss_fn in losses.items():
+        def step(loss_fn=loss_fn):
+            adam.zero_grad(set_to_none=True)
+            loss_fn().backward()
+            adam.step()
+        for _ in range(3):
+            step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            step()
+        torch.cuda.synchronize()
+        warm = 1e2 * (time.perf_counter() - t0)
+        launches, busy, ranked = device_busy(step)
+        res[f"{name}_warm_ms"], res[f"{name}_launches"] = warm, launches
+        res[f"{name}_device_ms"] = busy
+        print(f"[refine full] a warm {name} iteration: {warm:.3f} ms wall "
+              f"(mean of 10), {launches} device kernels running {busy:.3f} "
+              f"ms in all (torch.profiler), {100 * busy / warm:.1f}% of the "
+              f"wall; the largest: " + "; ".join(
+                  f"{k[:70]} x{n} {ms:.3f} ms" for k, (n, ms) in ranked))
+    check(all(np.isfinite(v).all() for v in opt.values()),
+          "the full-width refine is not finite")
+    check(res["transl_m"][1] < 0.5 * res["transl_m"][0],
+          "the full-width refine did not halve the transl error")
+    check(res["kp_px"][1] < res["kp_px"][0],
+          "the full-width refine did not reduce the keypoint error")
+    return res
+
+
 def demo_phase(dev, work: Path) -> dict:
     """Phase 13: the in-the-wild demo (bash/run-neuman-demo.sh) in
     process on a copy of phase 11's sequence as ``dataset=custom/video``:
@@ -1202,7 +1452,7 @@ def demo_phase(dev, work: Path) -> dict:
     seq = work / "seq_demo"
     shutil.copytree(work / "seq", seq)
     data = ["dataset=custom/video"]
-    res = {}
+    res = {"preprocess": preprocess_phase(dev, work, seq)}
 
     # -- fit ------------------------------------------------------------------
     import instantavatar_torch.deformers.smpl_deformer as sd_mod
@@ -1224,6 +1474,10 @@ def demo_phase(dev, work: Path) -> dict:
     exported = np.load(poses)
     losses = {k: float(v) for k, v in ftr.last_losses.items()}
     sp0 = ftr.dm.trainset.get_smpl_params()
+    refined = np.load(seq / "poses_optimized.npz")
+    check(all(np.array_equal(sp0[k], refined[k] if k == "betas"
+                             else refined[k][:CLI_TRAIN]) for k in sp0),
+          "demo fit did not start from poses_optimized.npz")
     drift = max(float(np.abs(exported[k] - sp0[k]).max())
                 for k in ("betas", "global_orient", "body_pose", "transl"))
     print(f"[demo] fit (SNARF_NGP_fitting dataset=custom/video deformer=smpl, "
@@ -2080,6 +2334,7 @@ def main(profile_dir: Path | None) -> int:
         ngp_phase(dev, Path(work))
         # -- 13. the in-the-wild demo -------------------------------------
         demo = demo_phase(dev, Path(work))
+        refine_full_phase(dev)
         # -- 14. the data engine, MocapDataset, the triplane field --------
         data_phase(dev, Path(work))
         triplane_phase(dev, Path(work))

@@ -13,8 +13,8 @@ import torch
 
 from .smpl import SMPLModel
 
-__all__ = ["toy_smpl_model", "toy_smpl_arrays", "SMPL_PARENTS",
-           "TOY_JOINTS"]
+__all__ = ["toy_smpl_model", "toy_smpl_arrays", "write_toy_smpl_npz",
+           "SMPL_PARENTS", "TOY_JOINTS"]
 
 SMPL_PARENTS = np.array(
     [-1, 0, 0, 0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 9, 9, 12,
@@ -129,3 +129,16 @@ def toy_smpl_model(ring_size: int = 8, num_betas: int = 10, seed: int = 0,
          for k in ("v_template", "shapedirs", "posedirs", "J_regressor",
                    "lbs_weights")}
     return SMPLModel(parents=a["parents"], faces=a["faces"], **t)
+
+
+def write_toy_smpl_npz(path, ring_size: int = 8, num_betas: int = 10,
+                       seed: int = 0, bone_rings: int = 0):
+    """Write the toy model as an SMPL release ``.npz`` (the keys of the
+    official files that ``load_smpl_model`` reads), so that the entry
+    points that take a model path load it; returns ``path``."""
+    a = toy_smpl_arrays(ring_size, num_betas, seed, bone_rings)
+    kintree = np.stack([a["parents"], np.arange(len(a["parents"]))])
+    np.savez(path, v_template=a["v_template"], shapedirs=a["shapedirs"],
+             posedirs=a["posedirs"], J_regressor=a["J_regressor"],
+             weights=a["lbs_weights"], kintree_table=kintree, f=a["faces"])
+    return path

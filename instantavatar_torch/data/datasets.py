@@ -7,7 +7,9 @@ package's rules: frame range ``start``/``end`` (inclusive)/``skip``,
 ``downscale`` with K scaled to match, the pose-file resolution order
 (refine -> ``poses/anim_nerf_test.npz``; else ``poses/anim_nerf_{split}``,
 ``poses/{split}``, ``poses_optimized`` (range-sliced), then ``poses.npz``
-range-sliced; ``fitting`` skips the cached files). ``FrameDataset`` takes
+range-sliced; ``fitting`` skips the per-split files and, unlike the JAX
+package, reads ``poses_optimized`` before ``poses.npz``, as the reference
+does). ``FrameDataset`` takes
 frames already in memory. Both assemble batches the same way: train
 frames blend the image over a random per-pixel background (``img * msk +
 (1 - msk) * bg``) and are cut by the sampler; val/test frames use a white
@@ -229,7 +231,9 @@ class AvatarDataset(_Split):
         if refine:
             cached = root / "poses/anim_nerf_test.npz"
         elif fitting:
-            cached = None
+            # the refinement's output when there is one, as the reference
+            # fits from it (the JAX package reads poses.npz here)
+            cached = root / "poses_optimized.npz"
         else:
             cached = None
             for cand in (root / f"poses/anim_nerf_{split}.npz",

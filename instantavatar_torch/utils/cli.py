@@ -18,8 +18,8 @@ import torch
 
 from ..config import load_config, to_yaml
 
-__all__ = ["parse_cli", "resolve_device", "setup_run", "repo_root",
-           "load_trained_state"]
+__all__ = ["parse_cli", "resolve_device", "select_device", "setup_run",
+           "repo_root", "load_trained_state"]
 
 
 def repo_root() -> Path:
@@ -52,14 +52,21 @@ def parse_cli(argv: list[str] | None = None,
 
 def resolve_device(cfg: Any) -> torch.device:
     """The run's device from ``+device`` (default cuda)."""
-    name = str(cfg.get("device", "cuda"))
+    return select_device(str(cfg.get("device", "cuda")), "+device")
+
+
+def select_device(name: str, flag: str) -> torch.device:
+    """``cpu`` or the current CUDA device for ``name``; ``flag`` is how the
+    caller's command line sets it (``+device`` or ``--device``). Stops
+    with a message when ``cuda`` is asked for and there is none."""
     if name == "cpu":
         return torch.device("cpu")
     if name != "cuda":
-        raise SystemExit(f"+device must be cuda or cpu, not {name!r}")
+        raise SystemExit(f"{flag} must be cuda or cpu, not {name!r}")
     if not torch.cuda.is_available():
-        raise SystemExit("no CUDA device: the entry points run on the GPU; "
-                         "pass +device=cpu to run on the CPU")
+        sep = " " if flag.startswith("--") else "="
+        raise SystemExit(f"no CUDA device: the entry points run on the GPU; "
+                         f"pass {flag}{sep}cpu to run on the CPU")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda", torch.cuda.current_device())
