@@ -22,8 +22,10 @@ points a user calls, and checks it in phases:
   7. training: a 264 px capsule scene (30 train + 2 val frames, made on
      the card), 150 ``AvatarModel.step`` calls (5 epochs; grid update and
      occupancy regularizer every 20 steps, cached-search steps between,
-     Adam with the 20-epoch decay); step times, peak memory, occupied
-     cells, the loss fall (bounded);
+     Adam with the 20-epoch decay), each one replay of the step's
+     captured CUDA graph (``train/step_graph.py``); step times, peak
+     memory, occupied cells, the graphs captured and their capture time,
+     the loss fall (bounded);
   8. validation: the 2 val frames rendered with ``eval_grid="density"``
      (``build_test_grid``, then the flat render through the kernel),
      PSNR-bounded against the GT;
@@ -37,7 +39,9 @@ points a user calls, and checks it in phases:
  11. the entry points: a 264 px capsule sequence directory (20 train + 1
      val + 2 test frames, toy body) written by the port's writer, then
      ``instantavatar_torch.cli.train`` in process with the flagship conf
-     (``network=voxel_triplane``, the rest at conf defaults) for 5 epochs,
+     (``network=voxel_triplane``, the rest at conf defaults; the Trainer
+     trains 4 steps per ``train_multi_step`` call on captured graphs, as
+     every CLI's Trainer in phases 11-15 does) for 5 epochs,
      a rerun that must resume and take no step (its validation render is
      the val path), ``Trainer.test``, ``animate`` on a 6-pose sequence
      and ``novel_view`` on 8 frames, both at 540 px; the files each
@@ -118,7 +122,18 @@ points a user calls, and checks it in phases:
      (band) beside the replicated bake; ``train_multi`` with two copies
      of phase 11's sequence for 2 epochs, each subject's checkpoint
      through ``animate``. Spawned ranks report their head launches and
-     rows through files.
+     rows through files;
+ 16. the captured step against the eager one, at full width, for the
+     flagship (phase 7's), the NGP conf default (phase 12's) and the
+     demo's fit (SMPL deformer, LPIPS, SMPL optimization) and train
+     (smpl_init) steps (phase 13's): 20 steps eager, then 20 through
+     ``train_multi_step`` in groups of 4 on graphs, from one state and one
+     seed, bit-equal under PyTorch's deterministic algorithms (where a
+     capture refuses that mode: the default mode, no further apart than
+     two eager runs; the mode is printed); then, per mode and step kind
+     (grid update, plain), warm ms/step, one profiled step's device
+     kernels, busy share and host launch calls, peak memory, and the
+     graphs captured with their capture time.
 
 Any failed check, a spawned rank's non-zero exit or a spawned run past
 its time limit exits non-zero. The last stdout line is
@@ -126,9 +141,11 @@ its time limit exits non-zero. The last stdout line is
 and the line before it lists the kernels, with the kernel's launches in
 each path (turntable, training, val render, phase 11's CLI train run,
 Trainer validation, Trainer test, animate and novel_view, and phase 13's
-SMPL-deformer voxel-triplane frame, phase 14's eval modes, and phase
-15's ranks and paths; the NGP and triplane paths evaluate the fp32 head
-and launch no kernel). ``--profile DIR`` also
+SMPL-deformer voxel-triplane frame, phase 14's eval modes, phase
+15's ranks and paths, and phase 16's flagship graph run; the NGP and
+triplane paths evaluate the fp32 head and launch no kernel). A captured
+step's launches are counted once per replay, and the eager warm-up
+before each capture launches the head once more. ``--profile DIR`` also
 writes torch.profiler summaries and traces of two steady-state frames and
 of one grid-update step plus three plain training steps to DIR.
 
@@ -235,6 +252,9 @@ DP_TURNTABLE = 3
 DP_BAND_LAYOUTS = (("stride", 2), ("stride", 4), ("stride", 8), ("band", 4))
 MULTI_SUBJECTS, MULTI_EPOCHS = ("a", "b"), 2
 SPAWN_TIMEOUT = 300.0
+# phase 16: steps run eager and on graphs from one state, the Trainer's
+# group size, the generator seed, the warm steps timed per kind
+GRAPH_STEPS, GRAPH_GROUP, GRAPH_SEED, GRAPH_TIMED = 20, 4, 16, 5
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 BF16_FLOP_PER_S = 989e12       # dense bf16 tensor-core peak, same source
 FP32_FLOP_PER_S = 67e12        # fp32 outside the tensor cores, same source
@@ -578,6 +598,12 @@ def train_phase(device, *, size=TRAIN_SIZE, n_train=TRAIN_FRAMES,
             occ.append(int(state.grid.occupancy.sum()))
     train_launches = fused_field_head.launches
     train_rows = fused_field_head.rows
+    graphs = avatar.step_graphs
+    if cuda:
+        print(f"[train] {graphs.captures} step graphs captured (one per "
+              f"grid-update / warm-up / noise branch), "
+              f"{graphs.capture_seconds:.2f} s of capture, warm-ups "
+              f"included")
     first, last = statistics.mean(mse[:10]), statistics.mean(mse[-10:])
     res = {"update_ms": statistics.median(times[True]),
            "plain_ms": statistics.median(times[False]),
@@ -600,6 +626,8 @@ def train_phase(device, *, size=TRAIN_SIZE, n_train=TRAIN_FRAMES,
     check(last < TRAIN_LOSS_FALL_MAX * first, "the training loss did not fall")
     check(not cuda or train_launches > 0,
           "training never launched the head (the cache bake's sigma sort)")
+    if cuda:
+        res.update(bake_budget_timing(avatar, state, train[0]))
 
     fused_field_head.launches = 0
     fused_field_head.rows = 0
@@ -643,6 +671,49 @@ def train_phase(device, *, size=TRAIN_SIZE, n_train=TRAIN_FRAMES,
         profile(four_steps, profile_dir, "torch_train_profile",
                 "1 grid-update + 3 plain training steps")
     return res
+
+
+def _exact_count_cache(avatar, state, dstate, grid) -> torch.Tensor:
+    """The training warp cache by exact count: ``torch.nonzero`` of the
+    occupied cells (a host read), the first ``cell_budget`` of them
+    baked, no padding."""
+    G = avatar.grid_size
+    cell_idx = torch.nonzero(grid.occupancy.reshape(-1))[
+        :avatar.cell_budget, 0]
+    ijk = torch.stack([cell_idx // (G * G), (cell_idx // G) % G,
+                       cell_idx % G], dim=-1).float()
+    span = grid.aabb[1] - grid.aabb[0]
+    rows, _ = avatar.deformer.bake_packed_cache(
+        state.deformer_cano, dstate, grid.aabb[0] + (ijk + 0.5) / G * span,
+        net_sigma_fn=lambda x: avatar._net(state)(x)[1])
+    cache = torch.zeros((G ** 3, rows.shape[-1]), device=rows.device)
+    cache[cell_idx] = rows
+    return cache
+
+
+def bake_budget_timing(avatar, state, batch) -> dict:
+    """The training bake on the trained state's grid, timed (CUDA events,
+    median of 5) with the static ``cell_budget`` (what a step runs) and
+    with the exact occupied count (``torch.nonzero``, a host read); both
+    caches must agree."""
+    with torch.no_grad():
+        dstate = avatar._prepare(state.deformer_cano, batch)
+        grid = state.grid
+        static = avatar._train_cache(state, dstate, grid)
+        exact = _exact_count_cache(avatar, state, dstate, grid)
+        check(torch.equal(static, exact),
+              "the static-budget bake differs from the exact-count one")
+        ms = {name: statistics.median(cuda_ms(fn, 5)) for name, fn in (
+            ("static", lambda: avatar._train_cache(state, dstate, grid)),
+            ("exact", lambda: _exact_count_cache(avatar, state, dstate,
+                                                 grid)))}
+    n_occ = int(grid.occupancy.sum())
+    print(f"[train] the training bake on the trained grid ({n_occ} "
+          f"occupied cells, cell_budget {avatar.cell_budget}): static "
+          f"budget {ms['static']:.3f} ms, exact count {ms['exact']:.3f} ms "
+          f"(CUDA events, median of 5); the caches agree")
+    return {"bake_static_ms": ms["static"], "bake_exact_ms": ms["exact"],
+            "bake_occupied": n_occ}
 
 
 def replay_train_golden(device) -> dict:
@@ -807,35 +878,61 @@ def cli_phase(dev, work: Path) -> dict:
 
 def _record_calls(module, attr: str, describe, steps_only: bool = False):
     """Record ``describe(*args)`` -> (entry, points) of every call of
-    ``module.attr`` (the name its callers read; with ``steps_only``,
-    inside ``AvatarModel.step`` only, so a training run's validation
-    renders are left out) until the returned ``stop`` is called, and keep
-    the points of the largest call; wrappers, no device sync."""
+    ``module.attr`` (the name its callers read) until the returned
+    ``stop`` is called, and keep the points of the largest call;
+    wrappers, no device sync. With ``steps_only``, the calls of training
+    steps only (a training run's validation renders are left out): an
+    eager step's calls, and for a step that replays a captured graph the
+    calls its capture made, which each replay repeats (the warm-up
+    before a capture is not a step)."""
     from instantavatar_torch.train import AvatarModel
-    real, real_step = getattr(module, attr), AvatarModel.step
+    from instantavatar_torch.train.step_graph import StepGraphs
+    real = getattr(module, attr)
+    real_gl = AvatarModel.grads_and_losses
+    real_capture, real_run = StepGraphs._capture, StepGraphs.run
     calls: list = []
     largest: dict = {"x": None}
-    inside = [not steps_only]
+    sink = [None if steps_only else calls]   # where a call is recorded
+    capturing: list = [None]                 # the capture's own list
+    captured: dict = {}                      # (graphs, key) -> calls
 
     def counted(*a, **kw):
-        if inside[0]:
+        if sink[0] is not None:
             entry, x = describe(*a)
-            calls.append(entry)
+            sink[0].append(entry)
             if largest["x"] is None or x.shape[0] > largest["x"].shape[0]:
                 largest["x"] = x.detach().clone()
         return real(*a, **kw)
 
-    def step(self, *a, **kw):
-        inside[0] = True
-        out = real_step(self, *a, **kw)
-        inside[0] = not steps_only
+    def grads_and_losses(self, *a, **kw):
+        cap = capturing[0]
+        prev, sink[0] = sink[0], (calls if cap is None else
+                                  cap if kw.get("in_place") else None)
+        try:
+            return real_gl(self, *a, **kw)
+        finally:
+            sink[0] = prev
+
+    def capture(self, state, key):
+        capturing[0] = []
+        try:
+            return real_capture(self, state, key)
+        finally:
+            captured[(id(self), key)], capturing[0] = capturing[0], None
+
+    def run(self, state, *a):
+        out = real_run(self, state, *a)
+        calls.extend(captured[(id(self), self.model.graph_key(state.step))])
         return out
 
     def stop():
         setattr(module, attr, real)
-        AvatarModel.step = real_step
+        AvatarModel.grads_and_losses = real_gl
+        StepGraphs._capture, StepGraphs.run = real_capture, real_run
     setattr(module, attr, counted)
-    AvatarModel.step = step
+    if steps_only:
+        AvatarModel.grads_and_losses = grads_and_losses
+        StepGraphs._capture, StepGraphs.run = capture, run
     return calls, largest, stop
 
 
@@ -2174,8 +2271,219 @@ def multi_phase(dev, work: Path, cli: dict) -> dict:
 
 
 
+# -- phase 16: the captured step against the eager one ---------------------
+
+# host calls that start device work (kernels, graphs, copies)
+LAUNCH_APIS = frozenset({
+    "cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+    "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync",
+    "cudaMemsetAsync"})
+
+
+def _step_tensors(avatar, state, losses: dict) -> list[torch.Tensor]:
+    """What a training step leaves: parameters, Adam moments, counts, the
+    grid, the SMPL leaves and the step's losses (copies)."""
+    opt = state.opt_state
+    out = [p.detach() for p in avatar.field.parameters()]
+    for group in ("field", "smpl"):
+        mom = opt.moments(group)
+        out += (mom[0] + mom[1]) if mom else []
+    out += [opt.count, opt.notfinite_count, *state.grid]
+    out += [p.detach() for p in state.smpl or ()]
+    out += [losses[k] for k in sorted(losses)]
+    return [t.clone() for t in out]
+
+
+def _gap(a: list, b: list) -> float:
+    """Largest absolute difference over the tensors of two runs."""
+    return max(float((x.double() - y.double()).abs().max())
+               if x.numel() else 0.0 for x, y in zip(a, b, strict=True))
+
+
+def _run_steps(avatar, make_state, batches: list, graph: bool) -> list:
+    """``len(batches)`` steps from ``make_state()`` with a generator
+    seeded GRAPH_SEED: eager ``step`` calls, or ``train_multi_step`` on
+    groups of GRAPH_GROUP (the Trainer's default)."""
+    from instantavatar_torch.train.harness import iterate_grouped
+    dev = avatar.device
+    state = make_state()
+    gen = torch.Generator(device=dev).manual_seed(GRAPH_SEED)
+    if graph:
+        for host in iterate_grouped(batches.__getitem__, range(len(batches)),
+                                    GRAPH_GROUP):
+            n = len(host["rays_o"])
+            state, losses = avatar.train_multi_step(
+                state, {k: torch.as_tensor(v).to(dev)
+                        for k, v in host.items()},
+                avatar.draw_steps(gen, int(np.prod(host["rays_o"]
+                                                   .shape[1:-1])),
+                                  state.step, n))
+    else:
+        for b in batches:
+            state, losses = avatar.step(state, b, gen, graph=False)
+    torch.cuda.synchronize()
+    return _step_tensors(avatar, state, losses)
+
+
+def _profile_step(fn) -> dict:
+    """One call of ``fn`` under torch.profiler: device kernels (and
+    copies), their summed ms, host launch calls, the profiled wall ms
+    and the busy share."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    ev = prof.events()
+    dev_ev = [e for e in ev
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in dev_ev) / 1e3
+    return {"kernels": len(dev_ev), "busy_ms": busy, "profiled_ms": wall,
+            "busy_share": busy / wall,
+            "host_launches": sum(1 for e in ev if e.name in LAUNCH_APIS)}
+
+
+def _timed_steps(avatar, state, batch, graph: bool, update: bool) -> dict:
+    """Warm ms per step (median of GRAPH_TIMED after one untimed call,
+    the capture's in graph mode), peak memory over those calls, one
+    profiled step; the steps sit past step 1000 (no warm-up, latch or
+    noise: most of a run) at the configuration's cadence."""
+    interval = avatar.grid_update_interval
+    if not update and interval == 1:
+        return {}
+    s0 = interval * math.ceil(1000 / interval) + (0 if update else 1)
+    gen = torch.Generator(device=avatar.device).manual_seed(GRAPH_SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for j in range(GRAPH_TIMED + 1):
+        st = state._replace(step=s0 + j * interval)
+        t0 = time.perf_counter()
+        avatar.step(st, batch, gen, graph=graph)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    res = {"ms": statistics.median(times[1:]),
+           "peak_mib": torch.cuda.max_memory_allocated() / 2 ** 20}
+    res.update(_profile_step(lambda: avatar.step(
+        state._replace(step=s0), batch, gen, graph=graph)))
+    return res
+
+
+def graph_check(name: str, avatar, make_state, batches: list) -> dict:
+    """Phase 16 for one configuration: GRAPH_STEPS steps eager and then
+    on graphs (``train_multi_step``) from one state and one seed, held
+    bit-equal under deterministic algorithms (or, where capture refuses
+    that mode, no further apart than two eager runs in the default mode);
+    then each mode timed per step kind."""
+    from instantavatar_torch.kernels import fused_field_head
+    mode = "deterministic"
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        eager = _run_steps(avatar, make_state, batches, False)
+        launches0 = fused_field_head.launches
+        rows0 = fused_field_head.rows
+        try:
+            graph = _run_steps(avatar, make_state, batches, True)
+        except RuntimeError as e:
+            print(f"[graph] {name}: capture refused deterministic "
+                  f"algorithms ({str(e).splitlines()[0][:200]}); comparing "
+                  f"in the default mode")
+            mode = "default"
+    finally:
+        torch.use_deterministic_algorithms(False)
+    if mode == "default":
+        eager = _run_steps(avatar, make_state, batches, False)
+        launches0 = fused_field_head.launches
+        rows0 = fused_field_head.rows
+        graph = _run_steps(avatar, make_state, batches, True)
+    head = (fused_field_head.launches - launches0,
+            fused_field_head.rows - rows0)
+    gap = _gap(eager, graph)
+    res = {"mode": mode, "gap": gap, "head": head}
+    if mode == "deterministic":
+        check(gap == 0.0, f"{name}: {GRAPH_STEPS} graph steps differ from "
+                          f"the eager ones by {gap:.3e} under deterministic "
+                          f"algorithms")
+    else:
+        res["eager_gap"] = _gap(eager, _run_steps(avatar, make_state,
+                                                  batches, False))
+        check(gap <= res["eager_gap"], f"{name}: graph gap {gap:.3e} above "
+                                       f"the eager gap {res['eager_gap']:.3e}")
+    print(f"[graph] {name}: {GRAPH_STEPS} steps, eager vs train_multi_step "
+          f"in groups of {GRAPH_GROUP} ({mode} algorithms): max |difference| "
+          f"of parameters, Adam moments, counts, grid and last losses "
+          f"{gap:.3e}"
+          + (f" (eager vs eager {res['eager_gap']:.3e})" if "eager_gap" in res
+             else "")
+          + f"; fused-head launches in the graph run {head[0]}")
+    state, batch = make_state(), batches[0]
+    g = avatar.step_graphs
+    c0, s0 = g.captures, g.capture_seconds
+    for graph_mode in (False, True):
+        for update in (True, False):
+            t = _timed_steps(avatar, state, batch, graph_mode, update)
+            if not t:
+                continue
+            kind = ("graph" if graph_mode else "eager") + (
+                "_update" if update else "_plain")
+            res[kind] = t
+            print(f"[graph] {name} {kind}: {t['ms']:.2f} ms/step (median of "
+                  f"{GRAPH_TIMED}, warm); one profiled step: {t['kernels']} "
+                  f"device kernels and copies, busy {t['busy_ms']:.2f} of "
+                  f"{t['profiled_ms']:.2f} ms (share {t['busy_share']:.3f}), "
+                  f"{t['host_launches']} host launch calls; peak memory "
+                  f"{t['peak_mib']:.1f} MiB")
+    res["captures"], res["capture_s"] = g.captures, g.capture_seconds
+    print(f"[graph] {name}: {g.captures} graphs captured in all, "
+          f"{g.capture_seconds:.2f} s of capture (warm-ups included; "
+          f"{g.captures - c0} and {g.capture_seconds - s0:.2f} s for the "
+          f"timed steps)")
+    return res
+
+
+def graph_phase(dev, work: Path) -> dict:
+    """Phase 16: the captured training step against the eager one, at
+    full width, for the flagship (phase 7's), the NGP conf default (phase
+    12's) and the demo's fit (SMPL deformer, LPIPS) and train
+    (smpl_init) steps (phase 13's). Returns each one's numbers and the
+    flagship graph run's head launches and rows."""
+    from instantavatar_torch.config.build import build_trainer
+    from instantavatar_torch.utils.cli import parse_cli
+    res = {}
+    seq, train, _ = capsule_splits(dev, TRAIN_SIZE, TRAIN_FRAMES, VAL_FRAMES)
+    avatar = make_trainer(dev, steps_per_epoch=TRAIN_FRAMES)
+    res["flagship"] = graph_check(
+        "flagship", avatar,
+        lambda: avatar.init(seq["smpl_params"]["betas"],
+                            generator=torch.Generator(device=dev)
+                            .manual_seed(0)),
+        [train[i % TRAIN_FRAMES] for i in range(GRAPH_STEPS)])
+    del avatar
+    demo = ["dataset=custom/video"]
+    for name, argv, seq_dir in (
+            ("ngp", ["--config-name", "SNARF_NGP"], "seq"),
+            ("demo_fit", ["--config-name", "SNARF_NGP_fitting", *demo,
+                          "deformer=smpl"], "seq_demo"),
+            ("demo_train", ["--config-name", "demo", *demo,
+                            "sampler.dilate=8"], "seq_demo")):
+        run = work / f"graph_{name}"
+        tr = build_trainer(parse_cli([*argv, *cli_overrides(
+            work / seq_dir, run)]), workdir=run, device=dev)
+        ds = tr.dm.trainset
+        res[name] = graph_check(name, tr.avatar, tr.init_state,
+                                [ds[i % len(ds)] for i in range(GRAPH_STEPS)])
+    res["paths"] = {"graph_vs_eager_flagship": res["flagship"]["head"]}
+    return res
+
+
 def main(profile_dir: Path | None) -> int:
     # -- 1. device --------------------------------------------------------
+    # cuBLAS's deterministic workspace (phases 15 and 16 compare runs under
+    # deterministic algorithms); read when cuBLAS starts
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs a GPU",
               file=sys.stderr)
@@ -2343,6 +2651,8 @@ def main(profile_dir: Path | None) -> int:
                **dp_render_check(dev, avatar, state, grid, batch,
                                  Path(work))["paths"],
                **multi_phase(dev, Path(work), cli)["paths"]}
+        # -- 16. the captured step against the eager one ---------------
+        par.update(graph_phase(dev, Path(work))["paths"])
     # -- 14. the eval modes on phase 4's avatar --------------------------------
     modes = modes_phase(dev, avatar, state, grid)
 

@@ -13,6 +13,9 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+
+from ..utils.device_const import device_constant
 
 __all__ = ["SMPLModel", "SMPLOutput", "rodrigues", "rigid_transform_chain",
            "smpl_forward", "lbs"]
@@ -78,9 +81,8 @@ def rodrigues(rot_vecs: torch.Tensor) -> torch.Tensor:
 def _rt_to_mat(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """(..., 3, 3) + (..., 3) -> (..., 4, 4) homogeneous transforms."""
     top = torch.cat([R, t[..., :, None]], dim=-1)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=R.dtype,
-                          device=R.device).expand(R.shape[:-2] + (1, 4))
-    return torch.cat([top, bottom], dim=-2)
+    return F.pad(top, (0, 0, 0, 1)) + F.pad(
+        torch.ones_like(t[..., :1, None]), (3, 0, 3, 0))
 
 
 def rigid_transform_chain(rot_mats: torch.Tensor, joints: torch.Tensor,
@@ -93,7 +95,7 @@ def rigid_transform_chain(rot_mats: torch.Tensor, joints: torch.Tensor,
     the skinning transforms A (B, J, 4, 4) = G_j [[I, -j_rest], [0, 1]].
     """
     J = rot_mats.shape[1]
-    par = torch.as_tensor(np.asarray(parents[1:]), device=joints.device)
+    par = device_constant(parents[1:], torch.int64, joints.device)
     rel_t = torch.cat([joints[:, :1], joints[:, 1:] - joints[:, par]], dim=1)
     local = _rt_to_mat(rot_mats, rel_t)
     world = [local[:, 0]]

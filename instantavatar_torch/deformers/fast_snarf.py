@@ -28,7 +28,8 @@ from ..body import SMPLModel, smpl_forward
 from ..ops.grid_sample import grid_sample_3d_packed, pack_corners_3d
 from ..ops.knn import knn_points
 from ..render.raymarcher import Rays, compact_samples
-from .packed_cache import (ROW_FLOATS, make_packed_cache_fns,
+from ..utils.device_const import device_constant
+from .packed_cache import (ROW_FLOATS, make_packed_cache_fns, mask_cells,
                            select_candidate)
 from .smpl_deformer import get_bbox_from_verts, rigid_inverse
 
@@ -262,7 +263,7 @@ class SNARFDeformer:
         tfs = frame.tfs
         I = len(self.init_bones)
         N = xd.shape[0]
-        bones = torch.as_tensor(self.init_bones, device=xd.device)
+        bones = device_constant(self.init_bones, torch.int64, xd.device)
         Rb_all = tfs[bones][:, :3, :3]                     # (I, 3, 3)
         tb_all = tfs[bones][:, :3, 3]                      # (I, 3)
 
@@ -395,15 +396,16 @@ class SNARFDeformer:
 
     @torch.no_grad()
     def bake_packed_cache(self, canonical: SnarfCanonical, frame: SnarfFrame,
-                          cells: torch.Tensor, net_sigma_fn):
+                          cells: torch.Tensor, net_sigma_fn,
+                          cell_mask: torch.Tensor | None = None):
         """Full Broyden search on posed-space cell centers (C, 3) -> (rows
         (C, K*13) [xc, J_inv, valid] per candidate, K = cache_K, sorted by
         baked sigma descending; per-cell max baked sigma (C,), 0 where no
         candidate is valid). ``net_sigma_fn``: (M, 3) canonical pts ->
-        sigma (M,). Not differentiable (the rows come from the search, the
-        sigma only orders them), so it runs without autograd. The JAX
-        ``cell_mask`` (zero rows of padding cells) has no counterpart: the
-        callers pass exactly the cells they bake."""
+        sigma (M,). ``cell_mask`` (C,) bool, as in JAX: False rows (the
+        padding of a static cell budget) and their sigma are zero. Not
+        differentiable (the rows come from the search, the sigma only
+        orders them), so it runs without autograd."""
         x, J_inv, strict, res_sq, in_b = self._search_raw(canonical, frame,
                                                           cells)
         valid = strict | (in_b & (res_sq < self.bake_residual ** 2))
@@ -430,7 +432,7 @@ class SNARFDeformer:
                                  torch.zeros_like(sigma_cell))
         rows = torch.cat([xc, Jf, valid.float()[..., None]], dim=-1) \
             .reshape(C, K * self.ROW_FLOATS)
-        return rows, sigma_cell
+        return mask_cells(rows, sigma_cell, cell_mask)
 
     # -- skinning and gradients ------------------------------------------
 

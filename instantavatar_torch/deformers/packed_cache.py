@@ -22,7 +22,8 @@ import functools
 
 import torch
 
-__all__ = ["ROW_FLOATS", "make_packed_cache_fns", "select_candidate"]
+__all__ = ["ROW_FLOATS", "make_packed_cache_fns", "select_candidate",
+           "mask_cells"]
 
 ROW_FLOATS = 13  # xc(3) + J_inv(9) + valid(1)
 
@@ -130,3 +131,15 @@ def select_candidate(rgb: torch.Tensor, sigma: torch.Tensor,
     rgb_out = torch.where(any_ok[..., None], rgb_out,
                           torch.zeros_like(rgb_out))
     return rgb_out, sigma_out, any_ok
+
+
+def mask_cells(rows: torch.Tensor, sigma: torch.Tensor,
+               cell_mask: torch.Tensor | None
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """A bake's (rows (C, R), sigma (C,)) with the rows and sigma of the
+    cells that ``cell_mask`` (C,) leaves out zeroed (JAX's ``cell_mask``:
+    the padding of a static cell budget); unchanged when it is None."""
+    if cell_mask is None:
+        return rows, sigma
+    return (torch.where(cell_mask[:, None], rows, 0.0),
+            torch.where(cell_mask, sigma, 0.0))

@@ -31,7 +31,8 @@ import torch.nn.functional as F
 from ..body import SMPLModel, SMPLOutput, smpl_forward
 from ..ops.knn import nearest_vertex
 from ..render.raymarcher import Rays
-from .packed_cache import ROW_FLOATS, make_packed_cache_fns
+from ..utils.device_const import device_constant
+from .packed_cache import ROW_FLOATS, make_packed_cache_fns, mask_cells
 
 __all__ = ["SMPLDeformer", "SMPLCanonical", "SMPLFrame",
            "get_bbox_from_verts", "rigid_inverse", "affine_inverse"]
@@ -59,11 +60,25 @@ def rigid_inverse(T: torch.Tensor) -> torch.Tensor:
     return _homogeneous(Rt, -(Rt @ T[..., :3, 3:])[..., 0])
 
 
+def _inv3(M: torch.Tensor) -> torch.Tensor:
+    """Inverse of (..., 3, 3) matrices by cofactors over the determinant
+    (``torch.linalg.inv`` checks for singular input on the host)."""
+    a, b, c = M[..., 0, :].unbind(-1)
+    d, e, f = M[..., 1, :].unbind(-1)
+    g, h, i = M[..., 2, :].unbind(-1)
+    A, B, C = e * i - f * h, f * g - d * i, d * h - e * g
+    det = a * A + b * B + c * C
+    adj = torch.stack([A, c * h - b * i, b * f - c * e,
+                       B, a * i - c * g, c * d - a * f,
+                       C, b * g - a * h, a * e - b * d], dim=-1)
+    return (adj / det[..., None]).reshape(M.shape)
+
+
 def affine_inverse(T: torch.Tensor) -> torch.Tensor:
     """Inverse of (..., 4, 4) affine transforms with a [0, 0, 0, 1] last
     row: LBS-blended transforms are not rigid, so the 3x3 block gets a
     full fp32 inverse."""
-    Ri = torch.linalg.inv(T[..., :3, :3])
+    Ri = _inv3(T[..., :3, :3])
     return _homogeneous(Ri, -(Ri @ T[..., :3, 3:])[..., 0])
 
 
@@ -98,11 +113,12 @@ class SMPLDeformer:
         return self.body.device
 
     def canonical_pose(self, batch: int = 1) -> torch.Tensor:
-        """da-pose: legs split by pi/6."""
-        pose = torch.zeros((batch, 69), device=self.device)
-        pose[:, 2] = math.pi / 6
-        pose[:, 5] = -math.pi / 6
-        return pose
+        """da-pose: legs split by pi/6 (a shared constant: do not write
+        to it)."""
+        pose = [0.0] * 69
+        pose[2], pose[5] = math.pi / 6, -math.pi / 6
+        return device_constant(pose, torch.float32,
+                               self.device).expand(batch, 69)
 
     def canonical_smpl(self, betas: torch.Tensor) -> SMPLOutput:
         return smpl_forward(self.body, betas.reshape(1, -1),
@@ -162,17 +178,21 @@ class SMPLDeformer:
 
     @torch.no_grad()
     def bake_packed_cache(self, cano: SMPLCanonical, frame: SMPLFrame,
-                          cells: torch.Tensor, net_sigma_fn
+                          cells: torch.Tensor, net_sigma_fn,
+                          cell_mask: torch.Tensor | None = None
                           ) -> tuple[torch.Tensor, torch.Tensor]:
         """Nearest-vertex warp of posed-space cell centres (C, 3) -> (rows
         (C, 13) [xc, J_inv = T_inv[:3, :3], valid], per-cell sigma (C,):
-        relu of ``net_sigma_fn`` at xc, 0 where invalid)."""
+        relu of ``net_sigma_fn`` at xc, 0 where invalid). ``cell_mask``
+        (C,) bool, as in JAX: False rows and their sigma are zero."""
         T, valid = self._nearest(frame, cells)
         xc = (T[:, :3, :3] @ cells[..., None])[..., 0] + T[:, :3, 3]
         rows = torch.cat([xc, T[:, :3, :3].reshape(-1, 9),
                           valid.float()[:, None]], dim=-1)
         sigma = torch.relu(net_sigma_fn(xc))
-        return rows, torch.where(valid, sigma, torch.zeros_like(sigma))
+        return mask_cells(rows, torch.where(valid, sigma,
+                                            torch.zeros_like(sigma)),
+                          cell_mask)
 
     def make_packed_cache_fns(self, cache_rows: torch.Tensor,
                               grid_aabb: torch.Tensor, grid_size: int,

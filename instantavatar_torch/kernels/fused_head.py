@@ -218,6 +218,8 @@ def fused_field_head(enc: torch.Tensor, sigma_w, sigma_b, color_w, color_b
     return color, sigma
 
 
-# launch counters: kernel launches and rows through the kernel
+# launch counters: kernel launches and rows through the kernel. A launch
+# made while a CUDA graph is captured runs at each replay instead; the
+# graph's owner counts it there (train/step_graph.py).
 fused_field_head.launches = 0
 fused_field_head.rows = 0

@@ -100,9 +100,9 @@ class TriPlaneField(nn.Module):
             raise ValueError(f"unknown head {head!r}")
         xn = ((x - center) / scale + 0.5).clamp(0.0, 1.0)
         feat = torch.cat([
-            sample_plane_bilinear(self.plane_xy, xn[..., [0, 1]]),
-            sample_plane_bilinear(self.plane_xz, xn[..., [0, 2]]),
-            sample_plane_bilinear(self.plane_yz, xn[..., [1, 2]])], dim=-1)
+            sample_plane_bilinear(self.plane_xy, xn[..., 0:2]),
+            sample_plane_bilinear(self.plane_xz, xn[..., 0::2]),
+            sample_plane_bilinear(self.plane_yz, xn[..., 1:3])], dim=-1)
         geo = _mlp(feat, self.sigma_w, self.sigma_b)
         color = _mlp(geo[..., 1:], self.color_w, self.color_b,
                      final_act=torch.sigmoid)

@@ -117,9 +117,9 @@ class VoxelTriplaneField(nn.Module):
             return grid_sample_2d_packed(
                 pack_corners_2d(p.permute(2, 0, 1)).to(dt), (Gp1, Gp1), uv)
 
-        f_xy = plane(self.plane_xy, xn[..., [0, 1]])
-        f_xz = plane(self.plane_xz, xn[..., [0, 2]])
-        f_yz = plane(self.plane_yz, xn[..., [1, 2]])
+        f_xy = plane(self.plane_xy, xn[..., 0:2])
+        f_xz = plane(self.plane_xz, xn[..., 0::2])
+        f_yz = plane(self.plane_yz, xn[..., 1:3])
         return torch.cat([f_vox, f_xy, f_xz, f_yz], dim=-1)
 
     def encode_shared(self, xn_ref: torch.Tensor, xn: torch.Tensor

@@ -31,6 +31,7 @@ from typing import NamedTuple, Sequence
 
 import torch
 
+from ..utils.device_const import device_constant
 from .grid_sample import _gather_rows
 
 __all__ = ["HashGridConfig", "level_resolutions", "init_hash_table",
@@ -85,10 +86,10 @@ def _level_constants(cfg: HashGridConfig, resolutions: Sequence[int],
         d = (res + 1) ** 3 <= T
         dense.append(d)
         mult.append((1, res + 1, (res + 1) ** 2) if d else _PRIMES)
-    res_i = torch.tensor(list(resolutions), dtype=torch.int64, device=device)
-    return (res_i.float(), res_i,
-            torch.tensor(mult, dtype=torch.int64, device=device),
-            torch.tensor(dense, dtype=torch.bool, device=device))
+    res_i = device_constant(list(resolutions), torch.int64, device)
+    return (device_constant(list(resolutions), torch.float32, device),
+            res_i, device_constant(mult, torch.int64, device),
+            device_constant(dense, torch.bool, device))
 
 
 def _slots_weights(x: torch.Tensor, cfg: HashGridConfig, consts

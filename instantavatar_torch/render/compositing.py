@@ -29,6 +29,25 @@ class CompositeOutput(NamedTuple):
     trans: torch.Tensor    # (N,) final transmittance
 
 
+class _PositiveCumprod(torch.autograd.Function):
+    """``torch.cumprod`` over the last axis of a positive tensor. Its
+    backward is PyTorch's own formula for input without zeros,
+    ``reversed_cumsum(out * grad) / x``, without the host check for zeros
+    that PyTorch's backward makes first (which a CUDA graph cannot
+    capture): the compositor's factors are >= 1e-10."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor) -> torch.Tensor:
+        out = torch.cumprod(x, dim=-1)
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor) -> torch.Tensor:
+        x, out = ctx.saved_tensors
+        return (out * grad).flip(-1).cumsum(-1).flip(-1).div(x)
+
+
 def composite(sigma: torch.Tensor, rgb: torch.Tensor, z: torch.Tensor,
               delta: torch.Tensor, valid: torch.Tensor,
               bg_color: torch.Tensor | None = None) -> CompositeOutput:
@@ -45,7 +64,7 @@ def composite(sigma: torch.Tensor, rgb: torch.Tensor, z: torch.Tensor,
     # exclusive cumprod: T_i = prod_{j<i} (1 - alpha_j + eps)
     shifted = torch.cat([torch.ones_like(alpha[..., :1]),
                          1.0 - alpha[..., :-1] + 1e-10], dim=-1)
-    trans = torch.cumprod(shifted, dim=-1)
+    trans = _PositiveCumprod.apply(shifted)
     weights = alpha * trans
     trans_final = trans[..., -1] * (1.0 - alpha[..., -1] + 1e-10)
     color = (weights[..., None] * rgb.float()).sum(-2)

@@ -13,7 +13,7 @@ flat cell id is (i * G + j) * G + k. Same semantics as JAX:
     and filter;
   * ``largest_component``: 3G masked 3^3 max-pool sweeps of unique float
     cell ids (exact below 2^24), then the label with the most cells
-    (``bincount``/``argmax``, first index on ties).
+    (a fixed-length count and ``argmax``, first index on ties).
 
 The jitter is an argument ((G, G, G, 3) uniform [0, 1) draws, one set per
 pass), so a caller can feed JAX's draws and get JAX's grid.
@@ -70,9 +70,11 @@ def largest_component(occ: torch.Tensor) -> torch.Tensor:
     for _ in range(3 * G):
         comp = max_pool3d(comp) * mask
     labels = comp.to(torch.int64).reshape(-1)
-    counts = torch.bincount(labels, minlength=occ.numel() + 1)
-    counts[0] = 0
-    keep = (labels == counts.argmax()).reshape(occ.shape)
+    # a count of fixed length (CUDA's bincount reads the max back)
+    counts = torch.zeros(occ.numel() + 1, dtype=torch.int64,
+                         device=occ.device).index_add_(
+        0, labels, torch.ones_like(labels))
+    keep = (labels == counts[1:].argmax() + 1).reshape(occ.shape)
     return keep & occ   # an empty grid stays empty
 
 
@@ -111,7 +113,9 @@ def occupancy_regularizer(density_norm: torch.Tensor,
                           update_interval: int, warmup: int = 500
                           ) -> torch.Tensor:
     """Density in unoccupied cells, scaled by the update interval, plus
-    half the mean density during the first ``warmup`` steps."""
+    half the mean density during the first ``warmup`` steps. ``step`` is
+    the host's count (JAX selects the warm-up term on the device; a
+    captured step fixes it per graph, ``AvatarModel.graph_key``)."""
     inv = ~occupancy
     denom = inv.sum().clamp_min(1)
     reg = update_interval * torch.where(

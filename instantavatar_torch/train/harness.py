@@ -21,10 +21,15 @@ normalization into a fresh state (the refine flow). Scalars go to
 images go out as PNGs.
 
 The step's random draws come from a ``torch.Generator`` seeded from
-``seed``. The loop steps one call at a time and copies each batch from
-pinned host memory with ``non_blocking=True``; the JAX loop's multi-step
-grouping and prefetch thread work around a remote TPU's dispatch cost and
-have no counterpart here.
+``seed``. As in JAX, the loop trains ``multi_step`` steps per call
+(``AvatarModel.train_multi_step``, default 4) on groups of consecutive
+indices of the epoch's permutation (``iterate_grouped``; the last group
+of an epoch is smaller), each group stacked on a leading axis and copied
+from pinned host memory with ``non_blocking=True``. On the card each
+step of a group is one replay of its captured graph, with no host sync
+in between; the host reads the losses only to log them. JAX's prefetch
+thread and one-blob transfer work around a remote TPU's transfer cost
+and have no counterpart here.
 """
 from __future__ import annotations
 
@@ -42,7 +47,7 @@ from ..utils.image_io import jet, write_png
 from .model import AvatarModel, RenderSession, TrainState
 
 __all__ = ["Trainer", "save_checkpoint", "restore_checkpoint",
-           "latest_checkpoint", "graft"]
+           "latest_checkpoint", "graft", "iterate_grouped"]
 
 
 # -- checkpoints -------------------------------------------------------------
@@ -51,7 +56,8 @@ def _checkpoint_contents(state: TrainState, field) -> dict:
     adam = None
     opt = state.opt_state
     if opt is not None:
-        adam = {"count": opt.count, "notfinite_count": opt.notfinite_count}
+        adam = {"count": int(opt.count),
+                "notfinite_count": int(opt.notfinite_count)}
         for group, prefix in (("field", ""), ("smpl", "smpl_")):
             mu, nu = opt.moments(group) or ([], [])
             adam[prefix + "exp_avg"], adam[prefix + "exp_avg_sq"] = mu, nu
@@ -146,6 +152,18 @@ def _to_image(x: np.ndarray) -> np.ndarray:
     return (np.clip(x, 0.0, 1.0) * 255).astype(np.uint8)
 
 
+def iterate_grouped(getter, indices, group: int):
+    """Host batches of ``group`` consecutive ``indices`` (JAX's
+    ``DevicePrefetcher.iterate_grouped``): each key of ``getter(i)``
+    stacked on a leading axis, the last group smaller when ``group``
+    does not divide the count."""
+    indices = list(indices)
+    for s in range(0, len(indices), group):
+        items = [getter(int(i)) for i in indices[s:s + group]]
+        yield {k: np.stack([np.asarray(b[k]) for b in items])
+               for k in items[0]}
+
+
 def _to_device(batch: dict[str, Any], device: torch.device) -> dict:
     """Host batch -> tensors on ``device``, through pinned memory."""
     out = {}
@@ -168,7 +186,8 @@ class Trainer:
                  resume: bool = True,
                  seed: int = 42,
                  evaluator=None,
-                 lr_schedule=None):
+                 lr_schedule=None,
+                 multi_step: int = 4):
         self.avatar = avatar
         self.dm = datamodule
         self.workdir = Path(workdir)
@@ -179,6 +198,9 @@ class Trainer:
         self.resume = resume
         self.seed = seed
         self.evaluator = evaluator
+        # steps per train_multi_step call (JAX's default); 1 steps one at
+        # a time
+        self.multi_step = max(1, int(multi_step))
         # step -> lr, for the train/lr scalar
         self.lr_schedule = lr_schedule
         # one render session for the run: val/test frames of one pose
@@ -233,14 +255,20 @@ class Trainer:
         t0 = time.time()
         for epoch in range(start_epoch, self.max_epochs):
             t_epoch = time.perf_counter()
-            for i in rng.permutation(steps_per_epoch):
-                t_batch = time.perf_counter()
-                batch = _to_device(trainset[int(i)], dev)
+            t_batch = time.perf_counter()
+            for host in iterate_grouped(trainset.__getitem__,
+                                        rng.permutation(steps_per_epoch),
+                                        self.multi_step):
+                batches = _to_device(host, dev)
                 self.batch_seconds += time.perf_counter() - t_batch
-                state, losses = self.avatar.step(state, batch, gen)
+                n = len(host["idx"])
+                n_rays = int(np.prod(host["rays_o"].shape[1:-1]))
+                state, losses = self.avatar.train_multi_step(
+                    state, batches,
+                    self.avatar.draw_steps(gen, n_rays, step, n))
                 self.last_losses = losses
-                step += 1
-                if step % self.log_every == 0:
+                step += n
+                if step % self.log_every < n:
                     scal = {k: float(v) for k, v in losses.items()
                             if v.ndim == 0}
                     if self.lr_schedule is not None:
@@ -250,6 +278,7 @@ class Trainer:
                     print(f"[trainer] epoch {epoch} step {step} "
                           f"loss={scal.get('loss', float('nan')):.4f} "
                           f"({time.time() - t0:.0f}s)")
+                t_batch = time.perf_counter()
 
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)

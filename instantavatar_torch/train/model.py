@@ -66,13 +66,18 @@ evaluates the field through the eval head (``head="fused"``: the CUDA
 kernel for the voxel-triplane field), ``shared_corner_eval`` through the
 field's ``apply_shared``.
 
-PyTorch runs eagerly with dynamic shapes, so samples and occupied cells
-are selected with ``torch.nonzero`` at their exact counts (row-major and
-order-preserving like ``jnp.nonzero``). The JAX path's static sample and
-cell budgets, overflow re-render loop, compiler size-hopping, packed
-f16/u8 frame buffer and config lock have no counterpart here: they pad or
-work around the TPU toolchain, and the JAX path renders the same frame
-once no budget overflows.
+The training step keeps JAX's static shapes, so that it reads nothing
+back to the host: the training bake takes a static ``cell_budget`` of
+cells (``_train_cache``), and every branch JAX takes on the device is
+fixed per step by the host-known step (``graph_key``). On a CUDA model
+``step`` and ``train_multi_step`` replay a captured CUDA graph of the
+step (``step_graph.StepGraphs``), as JAX runs its jitted step; on the
+CPU they run eagerly. The frame render selects samples and occupied
+cells with ``torch.nonzero`` at their exact counts (row-major and
+order-preserving like ``jnp.nonzero``); the JAX frame's static sample
+and cell budgets, overflow re-render loop, compiler size-hopping, packed
+f16/u8 frame buffer and config lock have no counterpart here, and the
+JAX path renders the same frame once no budget overflows.
 """
 from __future__ import annotations
 
@@ -289,6 +294,9 @@ class AvatarModel:
                              "(losses.lpips.load_lpips)")
         self.optimizer = optimizer or make_optimizer(
             1e-2, betas=(0.9, 0.999), eps=1e-8, skip_nonfinite=0)
+        # the captured training steps (``step_graph.StepGraphs``), made at
+        # the first step that replays one
+        self.step_graphs = None
 
     @property
     def device(self) -> torch.device:
@@ -467,18 +475,9 @@ class AvatarModel:
         G = self.grid_size
         aabb0, span = grid.aabb[0], grid.aabb[1] - grid.aabb[0]
         cano = state.deformer_cano
-        with torch.no_grad():
-            cell_idx = torch.nonzero(grid.occupancy.reshape(-1))[
-                :self.cell_budget, 0]
-            ijk = torch.stack([cell_idx // (G * G), (cell_idx // G) % G,
-                               cell_idx % G], dim=-1).float()
-            rows, _ = self.deformer.bake_packed_cache(
-                cano, dstate, aabb0 + (ijk + 0.5) / G * span,
-                net_sigma_fn=lambda x: self._net(state)(x)[1])
-            cache = torch.zeros((G ** 3, rows.shape[-1]), device=rows.device)
-            cache[cell_idx] = rows
+        cache = self._train_cache(state, dstate, grid)
         R = self.deformer.ROW_FLOATS
-        K = rows.shape[-1] // R
+        K = cache.shape[-1] // R
 
         def field_fn(pts):
             M = pts.shape[0]
@@ -497,6 +496,32 @@ class AvatarModel:
                                     sigma.reshape(M, K), val)
 
         return field_fn
+
+    @torch.no_grad()
+    def _train_cache(self, state: TrainState, dstate,
+                     grid: DensityGridState) -> torch.Tensor:
+        """The training warp cache (G^3, K*13). As in JAX, a static
+        ``cell_budget`` of cells is baked: the first ``cell_budget``
+        occupied cells in flat order (``jnp.nonzero(size=cell_budget,
+        fill_value=G^3)``, here the cumsum compaction of
+        ``compact_samples``), the padding cells masked out of the bake
+        (``cell_mask``) and written to a spare last row of a (G^3 + 1)-row
+        table that is then dropped (JAX's ``mode="drop"``). No count is
+        read back to the host."""
+        G = self.grid_size
+        n = G ** 3
+        idx, keep = compact_samples(grid.occupancy.reshape(1, n),
+                                    self.cell_budget)
+        idx, keep = idx[0], keep[0]   # idx is 0 on the padding
+        ijk = torch.stack([idx // (G * G), (idx // G) % G, idx % G],
+                          dim=-1).float()
+        aabb0, span = grid.aabb[0], grid.aabb[1] - grid.aabb[0]
+        rows, _ = self.deformer.bake_packed_cache(
+            state.deformer_cano, dstate, aabb0 + (ijk + 0.5) / G * span,
+            net_sigma_fn=lambda x: self._net(state)(x)[1], cell_mask=keep)
+        cache = torch.zeros((n + 1, rows.shape[-1]), device=rows.device)
+        cache[torch.where(keep, idx, n)] = rows
+        return cache[:n]
 
     def _density_fn(self, state: TrainState, dstate, eval_mode: bool = False):
         """Grid query: full search + field sigma on SMPL-space pts, 0 where
@@ -528,14 +553,22 @@ class AvatarModel:
                          if with_grid_update else None))
 
     def grads_and_losses(self, state: TrainState, batch, draws: StepDraws,
-                         with_grid_update: bool = False
+                         with_grid_update: bool = False, *,
+                         in_place: bool = False
                          ) -> tuple[dict, DensityGridState]:
         """Loss and gradients of one step: the gradients land in the
         ``.grad`` of the field parameters and of the SMPL leaves; returns
         (loss components, the grid the step leaves). With ``smpl_init`` the
         step works on the batch frame's grid, gathered from the stack by
         ``idx``; the update keeps the seeded grid for the first 500 steps
-        and otherwise writes its result back into a copy of the stack."""
+        and otherwise writes its result back into a copy of the stack.
+        ``in_place`` (the captured step) writes the updated grid into the
+        state's own grid tensors instead and returns ``state.grid``.
+
+        Given device tensors, the step reads nothing back to the host;
+        ``state.step`` (a host int) picks the branches that JAX selects
+        on the device: the sigma noise, the 500-step latch and the
+        regularizer's warm-up."""
         for p in list(self.field.parameters()) + list(state.smpl or ()):
             p.grad = None
         dev = self.device
@@ -580,11 +613,20 @@ class AvatarModel:
             for k in ("global_orient", "body_pose", "transl"):
                 losses[f"drift_{k}"] = (rbatch[k].detach() - _as_tensor(
                     batch[k], dev)).abs().mean()
+        if new_grid is cur_grid:   # a plain step, or the latch held
+            return losses, state.grid
+        if in_place:
+            with torch.no_grad():
+                for s, g in zip(state.grid[:2], new_grid[:2]):
+                    if self.smpl_init:
+                        s.index_copy_(0, fidx, g[None])
+                    else:
+                        s.copy_(g)
+            return losses, state.grid
         if self.smpl_init:
-            new_grid = (state.grid if new_grid is cur_grid
-                        else DensityGridState(*(
-                            s.index_copy(0, fidx, g[None])
-                            for s, g in zip(state.grid, new_grid))))
+            new_grid = DensityGridState(*(
+                s.index_copy(0, fidx, g[None])
+                for s, g in zip(state.grid, new_grid)))
         return losses, new_grid
 
     def apply_grads(self, state: TrainState, new_grid: DensityGridState
@@ -604,16 +646,81 @@ class AvatarModel:
         losses, grid = self.grads_and_losses(state, batch, draws, True)
         return self.apply_grads(state, grid), losses
 
-    def step(self, state: TrainState, batch,
-             generator: torch.Generator) -> tuple[TrainState, dict]:
-        """One training step at the reference cadence: a grid update every
-        ``grid_update_interval`` steps, draws from ``generator``."""
-        update = state.step % self.grid_update_interval == 0
-        n_rays = int(np.prod(np.shape(batch["rays_o"])[:-1]))
-        draws = self.draw(generator, n_rays, update)
-        if update:
+    def is_update(self, step: int) -> bool:
+        """Whether step ``step`` updates the grid (the reference cadence:
+        every ``grid_update_interval`` steps)."""
+        return step % self.grid_update_interval == 0
+
+    def graph_key(self, step: int) -> tuple[bool, bool, bool]:
+        """The branches of step ``step`` that JAX takes on the device and
+        the captured step fixes per graph: (grid update, the 500-step
+        latch and the regularizer's warm-up on an update step, sigma
+        noise on)."""
+        update = self.is_update(step)
+        return (update, update and step < 500,
+                self.noise_steps > 0 and step < self.noise_steps)
+
+    def draw_steps(self, generator: torch.Generator, n_rays: int,
+                   first_step: int, k: int) -> list[StepDraws]:
+        """The draws of steps ``first_step`` .. ``first_step + k - 1``,
+        in the order ``k`` calls of ``step`` make them."""
+        return [self.draw(generator, n_rays, self.is_update(first_step + i))
+                for i in range(k)]
+
+    def _graphed(self, graph: bool | None) -> bool:
+        """Whether a step replays a captured CUDA graph: by default on a
+        CUDA model, never on the CPU (where ``graph=True`` raises)."""
+        if graph is None:
+            return self.device.type == "cuda"
+        if graph and self.device.type != "cuda":
+            raise ValueError("a captured training step needs a CUDA model")
+        return graph
+
+    def _run_step(self, state: TrainState, batch, draws: StepDraws,
+                  graph: bool) -> tuple[TrainState, dict]:
+        if (draws.grid_jitter is not None) != self.is_update(state.step):
+            raise ValueError(f"step {state.step}: the draws' grid jitter "
+                             f"does not match the grid-update cadence")
+        if graph:
+            if self.step_graphs is None:
+                from .step_graph import StepGraphs
+                self.step_graphs = StepGraphs(self)
+            return self.step_graphs.run(state, batch, draws)
+        if draws.grid_jitter is not None:
             return self.train_step_update(state, batch, draws)
         return self.train_step(state, batch, draws)
+
+    def step(self, state: TrainState, batch, generator: torch.Generator,
+             *, graph: bool | None = None) -> tuple[TrainState, dict]:
+        """One training step at the reference cadence: a grid update every
+        ``grid_update_interval`` steps, draws from ``generator``. On a
+        CUDA model the step replays a captured CUDA graph of the step
+        (``step_graph.StepGraphs``; a failed capture raises); on the CPU,
+        or with ``graph=False``, it runs eagerly. The graph writes the
+        updated grid into ``state.grid``'s tensors, as the optimizer
+        writes the parameters."""
+        n_rays = int(np.prod(np.shape(batch["rays_o"])[:-1]))
+        draws = self.draw(generator, n_rays, self.is_update(state.step))
+        return self._run_step(state, batch, draws, self._graphed(graph))
+
+    def train_multi_step(self, state: TrainState, batches,
+                         draws: list[StepDraws], *,
+                         graph: bool | None = None
+                         ) -> tuple[TrainState, dict]:
+        """K training steps in one call (JAX's ``train_multi_step``):
+        ``batches`` holds each key with a leading K axis, ``draws`` the K
+        steps' draws (``draw_steps``). Each step takes the grid-update
+        branch at the reference cadence. On a CUDA model each step is one
+        replay of its captured graph, its batch and draws copied into the
+        graph's buffers ahead of it, with no host sync; on the CPU, or
+        with ``graph=False``, the steps run eagerly. Returns (state, the
+        last step's losses)."""
+        graph = self._graphed(graph)
+        losses = {}
+        for i, d in enumerate(draws):
+            state, losses = self._run_step(
+                state, {k: v[i] for k, v in batches.items()}, d, graph)
+        return state, losses
 
     @torch.no_grad()
     def build_pose_grid(self, state: TrainState, batch) -> DensityGridState:

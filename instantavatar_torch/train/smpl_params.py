@@ -43,12 +43,13 @@ class SMPLParams(NamedTuple):
 
 
 def lookup_frame(params: SMPLParams, idx) -> dict[str, torch.Tensor]:
-    """Frame ``idx``'s parameters (betas shared), differentiable."""
-    i = torch.as_tensor(idx, device=params.transl.device).long()
+    """Frame ``idx``'s parameters (betas shared), differentiable. A
+    gather, so a device ``idx`` is not read back to the host."""
+    i = torch.as_tensor(idx, device=params.transl.device).long().reshape(1)
     return {"betas": params.betas[0],
-            "global_orient": params.global_orient[i],
-            "body_pose": params.body_pose[i],
-            "transl": params.transl[i]}
+            "global_orient": params.global_orient.index_select(0, i)[0],
+            "body_pose": params.body_pose.index_select(0, i)[0],
+            "transl": params.transl.index_select(0, i)[0]}
 
 
 def tv_loss(params: SMPLParams) -> torch.Tensor:

@@ -3,8 +3,9 @@ CUDA kernel against its plain version on the card, the field's
 no-autograd rule for the kernel head, one training step on the card
 against the same step on the CPU, the NGP hash encode and field, the
 nearest-vertex SMPL deformer (deform and bake) and LPIPS on the card
-against the CPU, the eval modes' frames (the head launched in each) and
-the triplane field on the card against the CPU. They skip where there is
+against the CPU, the eval modes' frames (the head launched in each),
+the triplane field on the card against the CPU, and the training step
+captured as CUDA graphs against the eager step. They skip where there is
 no card. This
 file imports no jax; on a machine that has only PyTorch, skip the
 jax-loading conftest:
@@ -468,3 +469,73 @@ def test_dp_render_two_ranks_on_card(cuda, tmp_path):
             assert float((r0[layout][k] - ref[k].cpu()).abs().max()) \
                 <= 1e-4, (layout, k)
         assert psnr(r0[layout]["rgb"], single["rgb"].cpu()) >= 40.0
+
+
+# -- the captured training step ------------------------------------------------
+
+def _graph_run(cuda, graph: bool, steps: int = 6):
+    """``steps`` steps of the seeded golden avatar (grid updates every 3
+    steps) on the golden batches from one state and one seed, eager or
+    on captured graphs; returns the avatar, the state and what the steps
+    leave (parameters, moments, counts, grid, last losses)."""
+    from instantavatar_torch import convert
+    C = golden_tool.CONFIG
+    avatar = golden_tool.port_avatar(device=cuda, grid_update_interval=3)
+    avatar.field.load_state_dict(convert.field_params_from_numpy(
+        convert.seeded_field_params(C["voxel_res"], C["plane_res"],
+                                    C["param_seed"], feat_std=C["feat_std"],
+                                    sigma_bias=C["sigma_bias"])))
+    batches = golden_tool.scene_batches()
+    state = avatar.init(batches[0]["betas"])
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    for i in range(steps):
+        state, losses = avatar.step(state, batches[i % 2], gen, graph=graph)
+    torch.cuda.synchronize()
+    opt = state.opt_state
+    out = [p.detach().clone() for p in avatar.field.parameters()]
+    out += [t.clone() for t in opt.moments()[0] + opt.moments()[1]]
+    out += [opt.count.clone(), *(g.clone() for g in state.grid)]
+    out += [losses[k].clone() for k in sorted(losses)]
+    return avatar, state, out
+
+
+def test_step_graph_replays_the_eager_step_bit_for_bit(cuda):
+    """The golden avatar's step captured (grid-update and plain graphs,
+    noise on) and replayed for 6 steps leaves the eager steps' parameters,
+    Adam moments, count, grid and last losses bit for bit under PyTorch's
+    deterministic algorithms; the grid is written in place and the
+    step's graphs share one pool."""
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        _, _, eager = _graph_run(cuda, False)
+        avatar, state, graph = _graph_run(cuda, True)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    g = avatar.step_graphs
+    assert g.captures == 2 and set(g.graphs) == {(True, True, True),
+                                                 (False, False, True)}
+    assert state.step == 6 and int(state.opt_state.count) == 6
+    for i, (a, b) in enumerate(zip(eager, graph, strict=True)):
+        assert torch.equal(a, b), i
+
+
+def test_step_graph_counts_the_head_on_replay(cuda):
+    """The fused head's counters: an eager step launches the head once
+    (the training bake's sigma sort); a captured step adds its captured
+    launches and rows on every replay, and its capture adds only the
+    eager warm-up's launch."""
+    from instantavatar_torch.train.step_graph import StepGraphs
+    fused_field_head.launches = fused_field_head.rows = 0
+    _graph_run(cuda, False, steps=2)
+    eager = (fused_field_head.launches, fused_field_head.rows)
+    assert eager[0] == 2 and eager[1] > 0
+    fused_field_head.launches = fused_field_head.rows = 0
+    avatar, _, _ = _graph_run(cuda, True, steps=2)
+    g = avatar.step_graphs
+    assert isinstance(g, StepGraphs) and g.captures == 2
+    per_graph = {k: (c.launches, c.rows) for k, c in g.graphs.items()}
+    assert all(v == (1, eager[1] // 2) for v in per_graph.values()), \
+        per_graph
+    # two replays, each warm-up one launch of the same rows
+    assert fused_field_head.launches == 2 + g.captures
+    assert fused_field_head.rows == eager[1] + g.captures * eager[1] // 2

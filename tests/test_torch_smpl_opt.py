@@ -268,17 +268,22 @@ def _check_smpl_step(jav, jst, batch, key, upd, jres, monkeypatch,
     jrows = _jax_bake_rows(jav, jst, batch, grid if upd else jst.grid)
     real = av.deformer.bake_packed_cache
 
-    def with_jax_rows(cano, frame, cells, net_sigma_fn):
-        rows, sig = real(cano, frame, cells, net_sigma_fn)
-        if rows.shape != jrows.shape:   # the grid sweep's own bake
+    def with_jax_rows(cano, frame, cells, net_sigma_fn, cell_mask=None):
+        rows, sig = real(cano, frame, cells, net_sigma_fn, cell_mask)
+        # the training bake: its first len(jrows) cells are JAX's, the
+        # rest the static budget's padding
+        n = len(jrows)
+        if cell_mask is None or int(cell_mask.sum()) != n:
             return rows, sig
-        r, j = rows.reshape(-1, 13).numpy(), jrows.reshape(-1, 13)
+        r, j = rows[:n].reshape(-1, 13).numpy(), jrows.reshape(-1, 13)
         assert (r[:, 12] != j[:, 12]).sum() <= 1e-3 * len(r)
         ok = (j[:, 12] > 0.5) & (r[:, 12] > 0.5)
         np.testing.assert_allclose(r[ok, :3], j[ok, :3], atol=1e-4)
         assert (np.abs(r[ok, 3:12] - j[ok, 3:12]).max(-1) > 1e-2).sum() \
             <= 0.005 * ok.sum()
-        return torch.as_tensor(jrows.copy()), sig
+        rows = rows.clone()
+        rows[:n] = torch.as_tensor(jrows.copy())
+        return rows, sig
     monkeypatch.setattr(av.deformer, "bake_packed_cache", with_jax_rows)
     state, losses, _ = step()
     i = int(batch["idx"])
