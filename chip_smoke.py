@@ -16,7 +16,9 @@ points a user calls, and checks it in phases:
      beside the kernel's bound (``head_cost`` at 3.35 TB/s and 989
      TFLOP/s);
   4. the 540 px slice: 2 warm frames, then an 8-frame turntable through
-     ``render_frames``; the kernel's launch counter must rise;
+     ``render_frames`` (each frame a replay of a captured CUDA graph at
+     the session's learned budgets, ``train/frame_graph.py``); the
+     kernel's launch counter must rise;
   5. head swap: one frame again with the plain head, PSNR-bounded;
   6. golden: the committed JAX golden frame (96 px), PSNR-bounded;
   7. training: a 264 px capsule scene (30 train + 2 val frames, made on
@@ -133,7 +135,20 @@ points a user calls, and checks it in phases:
      two eager runs; the mode is printed); then, per mode and step kind
      (grid update, plain), warm ms/step, one profiled step's device
      kernels, busy share and host launch calls, peak memory, and the
-     graphs captured with their capture time.
+     graphs captured with their capture time;
+ 17. the flat frame as JAX's one program: phase 4's avatar at 540 px, the
+     8-frame turntable and a 6-pose ``animate`` sequence (each pose's own
+     grid and bake), first eager at exact counts (``render_stream``
+     without budgets), then through ``render_frames`` at the session's
+     learned sample and cell budgets, each frame one graph replay
+     (bounded PSNR against the eager frame, max |diff| printed); warm
+     ms/frame and rays/s, peak memory, one profiled frame's device
+     kernels, busy share and host launch calls for both runs; the head's
+     launches on the replays (none captured in the timed pass), the
+     graphs captured and their capture time, the learned budgets against
+     the counts; a frame at priors too small for it must re-render
+     (rebaking) to the same frame. Every flat frame of phases 4-16 runs
+     the same budgeted, graphed frame.
 
 Any failed check, a spawned rank's non-zero exit or a spawned run past
 its time limit exits non-zero. The last stdout line is
@@ -142,10 +157,11 @@ and the line before it lists the kernels, with the kernel's launches in
 each path (turntable, training, val render, phase 11's CLI train run,
 Trainer validation, Trainer test, animate and novel_view, and phase 13's
 SMPL-deformer voxel-triplane frame, phase 14's eval modes, phase
-15's ranks and paths, and phase 16's flagship graph run; the NGP and
-triplane paths evaluate the fp32 head and launch no kernel). A captured
-step's launches are counted once per replay, and the eager warm-up
-before each capture launches the head once more. ``--profile DIR`` also
+15's ranks and paths, phase 16's flagship graph run and phase 17's
+frame graphs; the NGP and triplane paths evaluate the fp32 head and
+launch no kernel). A captured step's or frame's launches are counted
+once per replay, and the eager warm-up before each capture launches the
+head once more. ``--profile DIR`` also
 writes torch.profiler summaries and traces of two steady-state frames and
 of one grid-update step plus three plain training steps to DIR.
 
@@ -255,6 +271,10 @@ SPAWN_TIMEOUT = 300.0
 # phase 16: steps run eager and on graphs from one state, the Trainer's
 # group size, the generator seed, the warm steps timed per kind
 GRAPH_STEPS, GRAPH_GROUP, GRAPH_SEED, GRAPH_TIMED = 20, 4, 16, 5
+# phase 17: the animate poses, the untimed passes before a timed one, the
+# graph frame's PSNR floor against the exact-count eager frame, and the
+# priors that force an overflow (samples per block, cells)
+FRAME_POSES, FRAME_WARM, FRAME_MIN_DB, FRAME_TINY = 6, 2, 60.0, (0.05, 1024)
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 BF16_FLOP_PER_S = 989e12       # dense bf16 tensor-core peak, same source
 FP32_FLOP_PER_S = 67e12        # fp32 outside the tensor cores, same source
@@ -1104,6 +1124,7 @@ def ngp_phase(dev, work: Path) -> dict:
                         map_location=dev)["field"]
 
     # -- refine -----------------------------------------------------------
+    del trainer, state   # a CLI's model, and its graphs' memory, go with it
     t0 = time.perf_counter()
     rtrainer, rstate, test_m = eval_cli.main(["--config-name",
                                               "SNARF_NGP_refine", *over])
@@ -1135,6 +1156,7 @@ def ngp_phase(dev, work: Path) -> dict:
           "eval did not write results.txt and test/*.png")
 
     # -- fit on a copy of the sequence ---------------------------------------
+    del rtrainer, rstate
     seq_fit = work / "seq_fit"
     shutil.copytree(seq, seq_fit)
     t0 = time.perf_counter()
@@ -1166,6 +1188,7 @@ def ngp_phase(dev, work: Path) -> dict:
           "fit did not log loss_depth_reg and loss_lpips")
 
     # -- animate ----------------------------------------------------------
+    del ftrainer, fstate
     calls, anim_x, stop = _count_encode()
     anim = animate.main(["--config-name", "SNARF_NGP",
                          f"+pose_sequence={work / 'poses.npz'}",
@@ -1598,6 +1621,7 @@ def demo_phase(dev, work: Path) -> dict:
     check(drift > 0, "demo fit did not move the SMPL parameters")
 
     # -- train with the demo conf -------------------------------------------
+    del ftr, fstate   # the fit's model, and its graphs' memory, go with it
     run = work / "demo_run"
     over = [*data, *cli_overrides(seq, run)]
     torch.cuda.reset_peak_memory_stats()
@@ -1859,8 +1883,9 @@ def modes_phase(dev, avatar, state, grid) -> dict:
         av = AvatarModel(avatar.body, avatar.field, avatar.deformer,
                          **base, **knobs)
         sess = RenderSession()
-        av.render_frame(state, batch, grid=grid, image_shape=(H, W),
-                        session=sess)
+        for _ in range(2):   # the budgets learned, the graph captured
+            av.render_frame(state, batch, grid=grid, image_shape=(H, W),
+                            session=sess)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out, launches, rows = _counted(lambda: av.render_frame(
@@ -2193,7 +2218,7 @@ def dp_render_check(dev, avatar, state, grid, batch, work: Path) -> dict:
         for _ in range(3):
             _sync(dev)
             t0 = time.perf_counter()
-            avatar._bake(state, dstate, grid)
+            avatar._bake(state, dstate, grid, avatar._new_tables())
             _sync(dev)
             bake.append(1e3 * (time.perf_counter() - t0))
         res["bake_ms"] = statistics.median(bake)
@@ -2479,6 +2504,146 @@ def graph_phase(dev, work: Path) -> dict:
     return res
 
 
+# -- phase 17: the flat frame on graphs against the eager exact one --------
+
+def _exact_frame(avatar, state, frame, grid, session) -> dict:
+    """The frame eager at exact counts (``render_stream`` without budgets,
+    ``torch.nonzero`` selections), its grid built per pose when ``grid``
+    is None (``build_pose_grid``, as ``animate`` does)."""
+    g = grid if grid is not None else avatar.build_pose_grid(state, frame)
+    return avatar.composite_frame(
+        avatar.render_stream(state, frame, g, (H, W), session))
+
+
+def _timed_frames(run, avatar) -> tuple[list, float, float, tuple]:
+    """FRAME_WARM untimed passes of ``run()`` (a list of frames), then one
+    timed: (its frames, ms per frame, peak MiB, and in it the head's
+    launches and rows and the frame graphs captured)."""
+    from instantavatar_torch.kernels import fused_field_head
+
+    def captures():
+        return avatar.frame_graphs.captures if avatar.frame_graphs else 0
+    for _ in range(FRAME_WARM):
+        run()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    launches, rows = fused_field_head.launches, fused_field_head.rows
+    c0 = captures()
+    t0 = time.perf_counter()
+    outs = run()
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / len(outs)
+    return (outs, ms, torch.cuda.max_memory_allocated() / 2 ** 20,
+            (fused_field_head.launches - launches,
+             fused_field_head.rows - rows, captures() - c0))
+
+
+def frame_phase(dev, avatar, state, grid, turntable: list) -> dict:
+    """Phase 17: phase 4's avatar at 540 px, the 8-frame turntable (its
+    shell grid) and a FRAME_POSES-pose animate sequence (each pose's own
+    grid and bake), first eager at exact counts, then through
+    ``render_frames`` at the session's learned budgets, each frame one
+    replay of a captured graph. Per sequence and run: warm ms/frame and
+    rays/s, peak memory, one profiled frame (device kernels, busy share,
+    host launch calls); the graph frames against the eager ones (PSNR
+    floor FRAME_MIN_DB), the head's launches on the replays, the graphs
+    captured, the learned budgets against the counts; then a frame at
+    priors too small for it (FRAME_TINY), which must re-render to the same
+    frame. Returns the graph run's head launches and rows."""
+    from instantavatar_torch.train import RenderSession
+    g = np.random.default_rng(17)
+    poses = []
+    for i in range(FRAME_POSES):
+        bp = 0.05 * g.standard_normal(69).astype(np.float32)
+        bp[47] += 0.6 * np.sin(i)
+        bp[50] -= 0.6 * np.sin(i)
+        poses.append({**turntable[0], "body_pose": bp, "global_orient":
+                      np.array([0.0, -0.6 + 1.2 * i / (FRAME_POSES - 1),
+                                0.0], np.float32)})
+    res, paths = {}, {}
+    for name, frames, fgrid in (("turntable", turntable, grid),
+                                ("animate", poses, None)):
+        eager_sess, graph_sess = RenderSession(), RenderSession()
+        exact, e_ms, e_peak, _ = _timed_frames(lambda: [
+            _exact_frame(avatar, state, f, fgrid, eager_sess)
+            for f in frames], avatar)
+        fg = avatar.frame_graphs
+        c0 = (fg.captures, fg.capture_seconds) if fg else (0, 0.0)
+        graphed, g_ms, g_peak, (launches, rows, timed_captures) = \
+            _timed_frames(lambda: list(avatar.render_frames(
+                state, frames, grid=fgrid, image_shape=(H, W),
+                session=graph_sess)), avatar)
+        fg = avatar.frame_graphs
+        check(fg is not None and fg.replays > 0,
+              f"{name}: the frames replayed no graph")
+        c1 = (fg.captures, fg.capture_seconds)
+        dbs = [psnr(a["rgb"], b["rgb"]) for a, b in zip(graphed, exact)]
+        err = max(float((a[k] - b[k]).abs().max()) for a, b in
+                  zip(graphed, exact) for k in ("rgb", "alpha", "depth"))
+        check(min(dbs) >= FRAME_MIN_DB, f"{name}: a graph frame is "
+              f"{min(dbs):.2f} dB from its exact-count eager frame")
+        check(launches > 0 and timed_captures == 0,
+              f"{name}: the head's launches did not rise on replays "
+              f"({launches}), or the timed pass captured "
+              f"{timed_captures} graphs")
+        f0, f1 = frames[0], frames[-1]
+        prof_e = _profile_step(lambda: _exact_frame(avatar, state, f1,
+                                                    fgrid, eager_sess))
+        prof_g = _profile_step(lambda: avatar.render_frame(
+            state, f0, grid=fgrid, image_shape=(H, W), session=graph_sess))
+        skey = (H * W, (H, W, avatar._block_size(H, W)))
+        hits = [o["n_samples"] for o in graphed]
+        occ = [o["n_occ"] for o in graphed]
+        r = {"eager_ms": e_ms, "graph_ms": g_ms, "eager_peak_mib": e_peak,
+             "graph_peak_mib": g_peak, "min_db": min(dbs), "max_err": err,
+             "eager_profile": prof_e, "graph_profile": prof_g,
+             "captures": c1[0] - c0[0], "capture_s": c1[1] - c0[1],
+             "samp_budget": graph_sess.samp_budget[skey],
+             "cell_budget": graph_sess.cell_budget[skey],
+             "kept": (min(hits), max(hits)), "occupied": (min(occ), max(occ))}
+        res[name] = r
+        paths[f"frame_graph_{name}"] = (launches, rows)
+        for run, ms, peak, prof in (("eager exact", e_ms, e_peak, prof_e),
+                                    ("graph", g_ms, g_peak, prof_g)):
+            print(f"[frame] {name} {run}: {ms:.2f} ms/frame warm, "
+                  f"{H * W / ms * 1e3:.0f} rays/s, peak memory {peak:.1f} "
+                  f"MiB; one profiled frame: {prof['kernels']} device "
+                  f"kernels and copies, busy {prof['busy_ms']:.2f} of "
+                  f"{prof['profiled_ms']:.2f} ms (share "
+                  f"{prof['busy_share']:.3f}), {prof['host_launches']} host "
+                  f"launch calls")
+        print(f"[frame] {name}: {len(frames)} frames, graph vs eager exact "
+              f"PSNR min {min(dbs):.2f} dB (bound {FRAME_MIN_DB}), max "
+              f"|rgb/alpha/depth diff| {err:.3e}; head launches in the "
+              f"timed graph pass {launches} ({rows / max(launches, 1):.0f} "
+              f"rows each); graphs captured {r['captures']} in "
+              f"{r['capture_s']:.2f} s (none in the timed pass); learned "
+              f"budgets: samples {r['samp_budget']} for kept "
+              f"{r['kept'][0]}-{r['kept'][1]}, cells {r['cell_budget']} for "
+              f"occupied {r['occupied'][0]}-{r['occupied'][1]}")
+    # a forced overflow: priors too small for the samples and the cells
+    spr, cells = avatar.samples_per_ray, avatar.cell_budget
+    passes = []
+    dispatch = avatar._dispatch_frame
+    avatar._dispatch_frame = lambda rec, rebake=False: (
+        passes.append(rebake), dispatch(rec, rebake))
+    avatar.samples_per_ray, avatar.cell_budget = FRAME_TINY
+    try:
+        forced = avatar.render_frame(state, poses[2], image_shape=(H, W))
+    finally:
+        avatar.samples_per_ray, avatar.cell_budget = spr, cells
+        del avatar._dispatch_frame
+    want = _exact_frame(avatar, state, poses[2], None, RenderSession())
+    db = psnr(forced["rgb"], want["rgb"])
+    print(f"[frame] forced overflow at priors {FRAME_TINY}: {len(passes)} "
+          f"renders (rebakes {sum(passes[1:])}), PSNR {db:.2f} dB against "
+          f"the exact-count frame (bound {FRAME_MIN_DB})")
+    check(len(passes) >= 2 and any(passes[1:]) and db >= FRAME_MIN_DB,
+          "the forced overflow did not re-render to the same frame")
+    res["paths"] = paths
+    return res
+
+
 def main(profile_dir: Path | None) -> int:
     # -- 1. device --------------------------------------------------------
     # cuBLAS's deterministic workspace (phases 15 and 16 compare runs under
@@ -2564,9 +2729,17 @@ def main(profile_dir: Path | None) -> int:
           f"rows through the kernel/frame {rows / len(frames):.0f}, "
           f"alpha coverage {min(cover):.3f}-{max(cover):.3f}")
 
-    # a frame that pays its own warp-cache bake (a new pose, no memo)
+    # a frame that pays its own warp-cache bake: two poses alternate in
+    # one session (the budgets learned and the graphs captured first)
+    own = RenderSession()
+    posed = {**frames[1], "body_pose": frames[1]["body_pose"] + 0.05}
+    for f in (frames[1], posed, frames[1]):
+        avatar.render_frame(state, f, grid=grid, image_shape=(H, W),
+                            session=own)
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
-    avatar.render_frame(state, frames[1], grid=grid, image_shape=(H, W))
+    avatar.render_frame(state, posed, grid=grid, image_shape=(H, W),
+                        session=own)
     torch.cuda.synchronize()
     print(f"[slice] frame with its own bake: "
           f"{(time.perf_counter() - t0) * 1e3:.2f} ms")
@@ -2655,6 +2828,8 @@ def main(profile_dir: Path | None) -> int:
         par.update(graph_phase(dev, Path(work))["paths"])
     # -- 14. the eval modes on phase 4's avatar --------------------------------
     modes = modes_phase(dev, avatar, state, grid)
+    # -- 17. the flat frame on graphs against the eager exact one -------------
+    par.update(frame_phase(dev, avatar, state, grid, frames)["paths"])
 
     # -- 10. the kernel at each path's rows per launch ------------------------
     paths = {**cli["paths"], **demo["paths"], **par,

@@ -136,14 +136,14 @@ class VoxelTriplaneField(nn.Module):
             vox_packed, (Gv1, Gv1, Gv1), 2.0 * xn_ref.clamp(0.0, 1.0) - 1.0,
             2.0 * xn.clamp(0.0, 1.0) - 1.0)
 
-        def plane(p, ij):
+        def plane(p, ij):   # a slice: a list index copies from the host
             return grid_sample_2d_packed_shared(
                 pack_corners_2d(p.permute(2, 0, 1)).to(dt), (Gp1, Gp1),
                 xn_ref[..., ij], xn[..., ij])
 
-        return torch.cat([f_vox, plane(self.plane_xy, [0, 1]),
-                          plane(self.plane_xz, [0, 2]),
-                          plane(self.plane_yz, [1, 2])], dim=-1)
+        return torch.cat([f_vox, plane(self.plane_xy, slice(0, 2)),
+                          plane(self.plane_xz, slice(0, 3, 2)),
+                          plane(self.plane_yz, slice(1, 3))], dim=-1)
 
     # -- field -------------------------------------------------------------
 

@@ -27,13 +27,14 @@ A mesh made without an initialized process group is a world of 1: one
 process holds every subject and ray shard. The renderers then render
 every shard or band in turn, and ``DPFrameRenderer.render_band`` renders
 any one band alone; a training step over several ray shards needs the
-process group. JAX's per-program compile cache, its compiler
-size-hopping, its static sample budgets with the overflow re-render and
-its f16/u8 frame packing have no counterpart: the port's selection is
-exact-count (see ``train/model.py``).
+process group. The frame render keeps JAX's static sample and cell
+budgets and its overflow re-render (``DPFrameRenderer``); JAX's
+per-program compile cache, its compiler size-hopping and its f16/u8 frame
+packing have no counterpart.
 """
 from __future__ import annotations
 
+import warnings
 from dataclasses import dataclass
 from typing import Any, NamedTuple
 
@@ -41,7 +42,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..train.model import AvatarModel, RenderSession, StepDraws, TrainState
+from ..train.model import (AvatarModel, RenderSession, StepDraws, TrainState,
+                           _high_water)
 
 __all__ = ["PER_FRAME", "Mesh", "make_mesh", "shard_batch", "rank_draws",
            "make_dp_train_step", "make_dp_render", "DPFrameRenderer",
@@ -259,12 +261,30 @@ class _Frame(NamedTuple):
     perm: np.ndarray | None
 
 
+# the chunk of JAX's budgets (DPFrameRenderer's default)
+CHUNK = 32768
+
+
+def _halves(x: torch.Tensor) -> torch.Tensor:
+    """A count as two 20-bit halves, exact in fp32."""
+    return torch.stack([x // (1 << 20), x % (1 << 20)]).float()
+
+
 class DPFrameRenderer:
     """The flat frame render split over the mesh's ray axis: each rank
-    renders one band of the image through ``render_stream`` (the warp
+    renders one band of the image (``AvatarModel._flat_frame``: the warp
     cache, the prepass on its block lattice, the flat selection, the
-    fused head) and ``composite_frame``; the bands are all-gathered and
-    put back in image order.
+    fused head, the composite; one replay of a captured CUDA graph on a
+    CUDA model) at the static budgets of JAX's sharded program; the bands
+    are all-gathered, with each band's counts, and put back in image
+    order.
+
+    The budgets (JAX's ``_budgets``) are the session's learned ones for
+    the band shape, else the priors, the cell budget at most the model's
+    ``cell_budget``; ``finish_frame`` learns them from the largest band's
+    counts and re-renders every band when one overflowed (JAX's loop: at
+    most 4 passes, then a ``RuntimeWarning``). Every rank takes the same
+    decision, from the same gathered counts.
 
     ``layout="stride"`` (the default) deals p-row block-rows round-robin
     over the bands, p the prepass block of a band (3 or 2, else 1): band c
@@ -286,7 +306,7 @@ class DPFrameRenderer:
                  layout: str = "stride"):
         if layout not in ("stride", "band"):
             raise ValueError(f"unknown layout {layout!r}")
-        if avatar.eval_sampling != "flat" or not avatar._use_cache():
+        if not avatar._flat():
             raise ValueError("DPFrameRenderer runs the flat warp-cache "
                              "render (eval_sampling='flat')")
         self.avatar = avatar
@@ -332,93 +352,180 @@ class DPFrameRenderer:
                 common[k] = v
         return _Frame(common, bases, per_pixel, n, n // R, (H_loc, W), perm)
 
-    def _band(self, state: TrainState, frame: _Frame, band: int, grid,
-              session: RenderSession | None) -> dict:
+    def _start(self, state: TrainState, batch, grid, image_shape,
+               session: RenderSession | None, graph: bool | None) -> dict:
+        """A frame's record: its bands, grid, memo key and budgets (the
+        session's for the band shape, else the priors)."""
+        av = self.avatar
+        session = session if session is not None else RenderSession()
+        key, refs = av._frame_key(state, batch)
+        with torch.no_grad():
+            rbatch = av._resolve_batch(state, batch)
+        if grid is None:
+            grid = av._frame_grid(state, batch, session, key, refs)
+        frame = self._shape_frame(rbatch, image_shape)
+        p = av._block_size(*frame.band_shape)
+        skey = (frame.n_loc, (*frame.band_shape, p))
+        nb = frame.n_loc // (p * p)
+        hint = session.samp_budget.get(skey)
+        m = hint if hint is not None else int(nb * av.samples_per_ray)
+        return dict(state=state, frame=frame, grid=grid, session=session,
+                    key=key, refs=refs, skey=skey, graph=av._graphed(graph),
+                    samp_budget=av._round_budget(
+                        min(max(m, 1), nb * av.prepass_steps), CHUNK)[0],
+                    cell_budget=min(session.cell_budget.get(skey)
+                                    or av.cell_budget, av.cell_budget),
+                    bakes=0)
+
+    def _band(self, rec: dict, band: int, rebake: bool = False
+              ) -> tuple[dict, torch.Tensor, Any]:
+        """Band ``band``'s program at ``rec``'s budgets: (rgb, depth,
+        alpha, counter; the counts; the bake plan)."""
+        av, frame = self.avatar, rec["frame"]
         sl = slice(band * frame.n_loc, (band + 1) * frame.n_loc)
         bb = {**frame.common, "ray_basis": frame.bases[band],
               **{k: v[sl] for k, v in frame.per_pixel.items()}}
-        stream = self.avatar.render_stream(state, bb, grid, frame.band_shape,
-                                           session)
-        out = self.avatar.composite_frame(stream, bb.get("bg_color"))
-        out["baked"] = stream.baked
-        return out
+        plan = av._bake_plan(rec["session"], rec["key"], rec["refs"],
+                             rec["grid"], rec["cell_budget"], rebake)
+        out, counts = av._flat_program(rec["graph"])(
+            rec["state"], bb, rec["grid"], frame.band_shape, plan,
+            rec["samp_budget"], rec["cell_budget"])
+        av._commit_bake(rec["session"], plan)
+        return out, counts, plan
 
-    def _grid(self, state, batch, grid, session):
-        return (self.avatar._frame_grid(state, batch, session)
-                if grid is None else grid)
+    def _settle(self, rec: dict, n_hit: int, n_occ: int, limit: int
+                ) -> tuple[bool, bool]:
+        """Learn the session's budgets from a render's largest band
+        counts (high-water marks, the cells at most the model's
+        ``cell_budget``); on an overflow, set ``rec``'s budgets to the
+        learned ones, or the counts where those are larger. Returns
+        (samples over, cells over)."""
+        av, session, skey = self.avatar, rec["session"], rec["skey"]
+        _high_water(session.cell_budget, skey, min(
+            av.cell_budget, max(4096, -(-int(n_occ * 1.15) // 4096) * 4096)))
+        _high_water(session.samp_budget, skey, max(8192, int(n_hit * 1.2)))
+        ray_over, cell_over = n_hit > rec["samp_budget"], n_occ > limit
+        if ray_over:   # the learned budgets, as the single-device frame
+            rec["samp_budget"] = av._round_budget(
+                max(n_hit, session.samp_budget[skey]), CHUNK)[0]
+        if cell_over:
+            rec["cell_budget"] = max(-(-n_occ // 4096) * 4096,
+                                     session.cell_budget[skey])
+        return ray_over, cell_over
 
     def render_band(self, state: TrainState, batch, band: int, grid=None,
                     image_shape: tuple[int, int] | None = None,
-                    session: RenderSession | None = None) -> dict:
-        """Band ``band``'s program alone, in any process (no collective):
-        the ``render_frame``-style dict of its H / n_ray x W pixels in band
-        order, plus ``baked`` (whether it ran the warp-cache bake)."""
-        with torch.no_grad():
-            batch = self.avatar._resolve_batch(state, batch)
-        grid = self._grid(state, batch, grid, session)
-        return self._band(state, self._shape_frame(batch, image_shape),
-                          band, grid, session)
+                    session: RenderSession | None = None,
+                    graph: bool | None = None) -> dict:
+        """Band ``band``'s program alone, in any process (no collective),
+        re-rendered until no count overflows: the ``render_frame``-style
+        dict of its H / n_ray x W pixels in band order, plus ``baked``
+        (whether it ran the warp-cache bake)."""
+        rec = self._start(state, batch, grid, image_shape, session, graph)
+        rebake = baked = False
+        for _ in range(4):
+            out, counts, plan = self._band(rec, band, rebake)
+            baked |= plan.bake
+            n_hit, n_occ, _ = counts.tolist()
+            ray_over, rebake = self._settle(rec, n_hit, n_occ, plan.limit)
+            if not (ray_over or rebake):
+                break
+        return {**out, "n_samples": n_hit, "n_occ": n_occ, "baked": baked}
 
     # -- launch / wait -----------------------------------------------------
+
+    def _dispatch(self, rec: dict, rebake: bool = False) -> None:
+        """Render this rank's bands (in a world of 1, every band in turn)
+        and launch the gather (``async_op=True``). Each band ships one
+        more row: its kept samples and occupied cells (two 20-bit halves
+        each), whether it baked and the cell budget of its tables."""
+        parts = []
+        for c in _local_shards(self.mesh):
+            out, counts, plan = self._band(rec, c, rebake)
+            dev = counts.device
+            extra = torch.cat([
+                _halves(counts[0]), _halves(counts[1]),
+                torch.full((1,), float(plan.bake), device=dev),
+                torch.full((1,), float(plan.limit), device=dev)])
+            parts.append(torch.cat([_pack(out), extra[None]]))
+        rec["buf"], rec["work"] = _gather(torch.cat(parts), self.mesh,
+                                          async_op=True)
 
     def render_frame_async(self, state: TrainState, batch, grid=None,
                            image_shape: tuple[int, int] | None = None,
                            session: RenderSession | None = None,
-                           payload: str | None = None) -> dict:
+                           payload: str | None = None,
+                           graph: bool | None = None) -> dict:
         """Render this rank's band (in a world of 1, every band in turn)
-        and launch the gather (``async_op=True``); returns the in-flight
-        record for ``finish_frame``. ``payload`` sized the JAX render's
-        frame buffer and is accepted for its signature only."""
-        session = session if session is not None else RenderSession()
-        with torch.no_grad():
-            batch = self.avatar._resolve_batch(state, batch)
-        grid = self._grid(state, batch, grid, session)
-        frame = self._shape_frame(batch, image_shape)
-        parts = []
-        for c in _local_shards(self.mesh):
-            out = self._band(state, frame, c, grid, session)
-            # one more row: the band's sample count (exact in fp32 as two
-            # 20-bit halves), its occupied cells and whether it baked
-            extra = torch.tensor([[*divmod(out["n_samples"], 1 << 20),
-                                   *divmod(out["n_occ"], 1 << 20),
-                                   float(out["baked"]), 0.0]],
-                                 device=out["rgb"].device)
-            parts.append(torch.cat([_pack(out), extra]))
-        full, work = _gather(torch.cat(parts), self.mesh, async_op=True)
-        return {"buf": full, "work": work, "frame": frame,
-                "session": session}
+        at the session's budgets and launch the gather; returns the
+        in-flight record for ``finish_frame``. ``payload`` sized the JAX
+        render's frame buffer and is accepted for its signature only."""
+        rec = self._start(state, batch, grid, image_shape, session, graph)
+        self._dispatch(rec)
+        return rec
 
-    def finish_frame(self, rec: dict) -> dict:
-        """Wait for an in-flight frame's gather and return it in image
-        order: rgb (n, 3), depth, alpha, counter (n,) on the device, the
-        frame's kept samples, occupied cells, and the bands that baked."""
+    def _counts(self, rec: dict) -> tuple[int, int, int, list]:
+        """Wait for the gather; the band counts (one host read): the
+        largest kept samples and occupied cells, the smallest table cell
+        budget, and each band's (samples, cells, baked)."""
         if rec["work"] is not None:
             rec["work"].wait()
         frame = rec["frame"]
         rows = rec["buf"].reshape(self.n_ray, frame.n_loc + 1, 6)
-        pix, extra = rows[:, :-1].reshape(frame.n, 6), rows[:, -1].double()
+        extra = rows[:, -1].double().cpu().numpy()
+        bands = [(int(e[0]) * (1 << 20) + int(e[1]),
+                  int(e[2]) * (1 << 20) + int(e[3]), int(e[4]))
+                 for e in extra]
+        return (max(b[0] for b in bands), max(b[1] for b in bands),
+                int(extra[:, 5].min()), bands)
+
+    def finish_frame(self, rec: dict) -> dict:
+        """Wait for an in-flight frame's gather, learn the budgets, and
+        re-render on an overflow (see the class docstring); return it in
+        image order: rgb (n, 3), depth, alpha, counter (n,) on the device,
+        the frame's kept samples, occupied cells, and the bands that ran
+        the bake over the frame's renders."""
+        n_hit, n_occ, limit, bands = self._counts(rec)
+        rec["bakes"] += sum(b[2] for b in bands)
+        for _ in range(4):
+            ray_over, cell_over = self._settle(rec, n_hit, n_occ, limit)
+            if not (ray_over or cell_over):
+                break
+            self._dispatch(rec, rebake=cell_over)
+            n_hit, n_occ, limit, bands = self._counts(rec)
+            rec["bakes"] += sum(b[2] for b in bands)
+        else:
+            if n_hit > rec["samp_budget"] or n_occ > limit:
+                warnings.warn(
+                    f"sharded frame still overflowed after 4 re-render "
+                    f"passes (hits {n_hit} vs budget {rec['samp_budget']}, "
+                    f"occupied cells {n_occ} vs {limit}); the returned "
+                    f"image is truncated", RuntimeWarning, stacklevel=3)
+        frame = rec["frame"]
+        rows = rec["buf"].reshape(self.n_ray, frame.n_loc + 1, 6)
+        pix = rows[:, :-1].reshape(frame.n, 6)
         if frame.perm is not None:
             img = torch.empty_like(pix)
             img[torch.as_tensor(frame.perm, device=pix.device)] = pix
             pix = img
         return {"rgb": pix[:, :3], "depth": pix[:, 3], "alpha": pix[:, 4],
                 "counter": pix[:, 5],
-                "n_samples": int((extra[:, 0] * (1 << 20)
-                                  + extra[:, 1]).sum()),
-                "n_occ": int((extra[:, 2] * (1 << 20) + extra[:, 3]).max()),
-                "bands_baked": int(extra[:, 4].sum())}
+                "n_samples": sum(b[0] for b in bands), "n_occ": n_occ,
+                "bands_baked": rec["bakes"]}
 
     def render_frame(self, state: TrainState, batch, grid=None,
                      image_shape: tuple[int, int] | None = None,
                      session: RenderSession | None = None,
-                     payload: str | None = None) -> dict:
+                     payload: str | None = None,
+                     graph: bool | None = None) -> dict:
         return self.finish_frame(self.render_frame_async(
             state, batch, grid=grid, image_shape=image_shape,
-            session=session))
+            session=session, graph=graph))
 
     def render_frames(self, state: TrainState, batches, grid=None,
                       image_shape: tuple[int, int] | None = None,
-                      depth: int = 2, session: RenderSession | None = None):
+                      depth: int = 2, session: RenderSession | None = None,
+                      graph: bool | None = None):
         """Frame sequence with up to ``depth`` gathers in flight behind the
         next frame's band; one ``RenderSession`` spans the sequence (a
         turntable bakes once per pose)."""
@@ -427,7 +534,7 @@ class DPFrameRenderer:
         for batch in batches:
             inflight.append(self.render_frame_async(
                 state, batch, grid=grid, image_shape=image_shape,
-                session=session))
+                session=session, graph=graph))
             if len(inflight) > depth:
                 yield self.finish_frame(inflight.pop(0))
         while inflight:

@@ -72,16 +72,31 @@ cells (``_train_cache``), and every branch JAX takes on the device is
 fixed per step by the host-known step (``graph_key``). On a CUDA model
 ``step`` and ``train_multi_step`` replay a captured CUDA graph of the
 step (``step_graph.StepGraphs``), as JAX runs its jitted step; on the
-CPU they run eagerly. The frame render selects samples and occupied
-cells with ``torch.nonzero`` at their exact counts (row-major and
-order-preserving like ``jnp.nonzero``); the JAX frame's static sample
-and cell budgets, overflow re-render loop, compiler size-hopping, packed
-f16/u8 frame buffer and config lock have no counterpart here, and the
-JAX path renders the same frame once no budget overflows.
+CPU they run eagerly.
+
+The frame keeps JAX's static shapes too (``_render_frame_async``,
+``_finish_frame``): the bake takes the first ``cell_budget`` occupied
+cells and the flat stream the first ``samp_budget`` kept samples, both
+compacted by ``compact_samples`` with the padding masked, and the
+ray-bundle modes the first ``ray_budget`` hit rays; ``RenderSession``
+learns the sample and cell budgets per (rays, prepass shape) from the
+counts of earlier frames. A frame reads nothing back to the host until
+its one fetch, the (kept samples, occupied cells, evaluated samples)
+triple, which ``_finish_frame`` compares with the budgets: on an
+overflow it re-renders with larger ones (at most 4 passes, then a
+``RuntimeWarning``). ``render_frames`` keeps two frames in flight. On a
+CUDA model the flat frame is one replay of a captured CUDA graph
+(``frame_graph.FrameGraphs``, per image shape, budgets and bake or
+reuse); on the CPU, and in the ray-bundle modes, it runs eagerly.
+``render_stream`` and ``render_rays_frame`` called without budgets
+select at the exact counts (``torch.nonzero``), which the budgeted frame
+equals when nothing overflows. JAX's compiler size-hopping, packed
+f16/u8 frame buffer and config lock have no counterpart here.
 """
 from __future__ import annotations
 
 import math
+import warnings
 from typing import NamedTuple
 
 import numpy as np
@@ -148,23 +163,47 @@ class FlatStream(NamedTuple):
     offsets: torch.Tensor  # (nb,) first sample of each block
     counts: torch.Tensor   # (nb,) samples per block
     shape: tuple           # (H, W, p)
-    n_occ: int             # occupied grid cells
+    n_occ: torch.Tensor    # () occupied grid cells
+    n_hit: torch.Tensor    # () kept samples (S is their budget, or n_hit)
     baked: bool            # True if this frame ran the warp-cache bake
 
 
 class RenderSession:
-    """Cross-frame memos: the warp cache and sigma table depend only on
-    (field params, betas, body pose, grid), and the frame's own test grid
-    (``render_frame(grid=None)``) only on (field params, betas, body pose,
-    eval grid kind); global orientation and translation cancel in the
-    world->SMPL transform, so a turntable builds one grid and bakes once
-    per pose. Pass one session through a frame sequence."""
+    """Cross-frame state of a frame sequence (JAX's ``RenderSession``).
+
+    ``samp_budget`` and ``cell_budget`` hold the learned flat-stream
+    sample budget and bake cell budget per ``(n_rays, prepass_shape)``
+    (high-water marks of earlier frames' counts, ``_finish_frame``).
+    The memos: the warp cache and sigma table depend only on (field
+    params, betas, body pose, grid), and the frame's own test grid
+    (``render_frame(grid=None)``) only on (field params, betas, body
+    pose, eval grid kind); global orientation and translation cancel in
+    the world->SMPL transform, so a turntable builds one grid and bakes
+    once per pose. The tables live at fixed addresses (``tables``, each
+    with a spare last row for the bake's padding); a bake writes them in
+    place, so a captured frame that reuses them reads the last bake.
+    Pass one session through a frame sequence."""
 
     def __init__(self) -> None:
-        # (key, (cache, sig_table, n_occ), objects the key identifies)
+        self.samp_budget: dict = {}
+        self.cell_budget: dict = {}
+        # (cache (G^3 + 1, K*13), sig_table (G^3 + 1,)), made at first use
+        self.tables: tuple | None = None
+        # (key, tables, objects the key identifies, the bake's cell budget)
         self.last_bake: tuple | None = None
         # (key, DensityGridState, objects the key identifies)
         self.last_grid: tuple | None = None
+
+
+class _BakePlan(NamedTuple):
+    """A frame's use of the warp-cache tables: bake them or read the last
+    bake; ``limit`` is the cell budget the tables it reads are baked
+    with (more occupied cells overflow it)."""
+    tables: tuple
+    bake: bool
+    limit: int
+    key: tuple | None = None
+    refs: tuple = ()
 
 
 def _as_tensor(v, device) -> torch.Tensor:
@@ -243,8 +282,10 @@ class AvatarModel:
         ``apply_shared``, or the Newton step on rows tiled per pixel
         offset); ``prepass_dilate`` (3^3 max-pools of the grid for the
         dense and uncached prepass) and ``prepass_margin_steps`` (the
-        span's margin in prepass strides). ``samples_per_ray`` sized the
-        JAX render's static sample buffer; it is accepted and unused.
+        span's margin in prepass strides). ``samples_per_ray`` (kept
+        samples per block) sizes the flat stream's first sample budget,
+        ``cell_budget`` the frame bake's first cell budget; a
+        ``RenderSession`` learns both from the frames it renders.
         """
         if eval_sampling not in ("flat", "windows", "dense"):
             raise ValueError(f"unknown eval_sampling {eval_sampling!r}")
@@ -272,6 +313,7 @@ class AvatarModel:
         self.n_windows = n_windows
         self.term_T = term_T
         self.alpha_skip = alpha_skip
+        self.samples_per_ray = samples_per_ray
         self.eval_n_steps = eval_n_steps or min(n_steps, 64)
         self.cell_budget = cell_budget or max(grid_size ** 3 // 8, 1024)
         self.prepass_steps = prepass_steps
@@ -294,9 +336,13 @@ class AvatarModel:
                              "(losses.lpips.load_lpips)")
         self.optimizer = optimizer or make_optimizer(
             1e-2, betas=(0.9, 0.999), eps=1e-8, skip_nonfinite=0)
-        # the captured training steps (``step_graph.StepGraphs``), made at
-        # the first step that replays one
+        # the captured training steps (``step_graph.StepGraphs``) and
+        # frames (``frame_graph.FrameGraphs``), made at first use
         self.step_graphs = None
+        self.frame_graphs = None
+        # the warp-cache tables of frames rendered without a session, kept
+        # so that a captured frame finds them at one address
+        self._call_tables = None
 
     @property
     def device(self) -> torch.device:
@@ -366,9 +412,10 @@ class AvatarModel:
         cells = (torch.stack([xx, yy, zz], -1).reshape(-1, 3)
                  * (aabb[1] - aabb[0]) + aabb[0])
         d2, _ = nearest_vertex(cells, verts)
-        thr = max(margin, 0.5 * float(torch.linalg.norm((aabb[1] - aabb[0])
-                                                        / G)))
-        occ = (d2 < thr ** 2).reshape(G, G, G)
+        # on the device, as in JAX: a frame's grid reads nothing back
+        thr = (0.5 * torch.linalg.norm((aabb[1] - aabb[0]) / G)) \
+            .clamp_min(margin)
+        occ = (d2 < thr * thr).reshape(G, G, G)
         return DensityGridState(
             density_cached=torch.where(occ, 100.0 * 4.6, 0.0),
             occupancy=occ, aabb=aabb)
@@ -668,12 +715,13 @@ class AvatarModel:
                 for i in range(k)]
 
     def _graphed(self, graph: bool | None) -> bool:
-        """Whether a step replays a captured CUDA graph: by default on a
-        CUDA model, never on the CPU (where ``graph=True`` raises)."""
+        """Whether a step or a flat frame replays a captured CUDA graph: by
+        default on a CUDA model, never on the CPU (where ``graph=True``
+        raises)."""
         if graph is None:
             return self.device.type == "cuda"
         if graph and self.device.type != "cuda":
-            raise ValueError("a captured training step needs a CUDA model")
+            raise ValueError("a captured step or frame needs a CUDA model")
         return graph
 
     def _run_step(self, state: TrainState, batch, draws: StepDraws,
@@ -754,45 +802,85 @@ class AvatarModel:
 
     # -- frame render -------------------------------------------------------
 
-    def _bake(self, state: TrainState, dstate, grid: DensityGridState):
-        """Stage 4: warp-cache rows for every occupied cell, scattered into
-        a (G^3, K*13) table, and the per-cell sigma table (relu of the max
-        baked sigma where a candidate is valid, -1 elsewhere) that drives
-        the prepass's validity test and transmittance cut."""
+    def _table_shape(self) -> tuple[int, int]:
+        """The warp-cache table's shape, with a spare last row that the
+        padding of a budgeted bake writes to (JAX's ``mode="drop"``)."""
+        return (self.grid_size ** 3 + 1,
+                self.deformer.cache_K * self.deformer.ROW_FLOATS)
+
+    def _new_tables(self) -> tuple[torch.Tensor, torch.Tensor]:
+        shape = self._table_shape()
+        return (torch.zeros(shape, device=self.device),
+                torch.full(shape[:1], -1.0, device=self.device))
+
+    def _bake(self, state: TrainState, dstate, grid: DensityGridState,
+              tables: tuple, cell_budget: int | None = None) -> None:
+        """Stage 4, written in place into ``tables`` (``_new_tables``):
+        warp-cache rows for the occupied cells, scattered into the
+        (G^3 + 1, K*13) cache, and the per-cell sigma table (relu of the
+        max baked sigma where a candidate is valid, -1 elsewhere) that
+        drives the prepass's validity test and transmittance cut. With a
+        ``cell_budget`` the first that many occupied cells in flat order
+        are baked (JAX's ``jnp.nonzero(size=cell_budget)``: the
+        ``compact_samples`` compaction, the padding masked out of the bake
+        and written to the spare row); without, every occupied cell
+        (``torch.nonzero``, which reads the count back)."""
         G = self.grid_size
-        aabb = grid.aabb
-        cell_idx = torch.nonzero(grid.occupancy.reshape(-1))[:, 0]
+        n = G ** 3
+        occ = grid.occupancy.reshape(-1)
+        if cell_budget is None:
+            cell_idx, keep = torch.nonzero(occ)[:, 0], None
+            dst = cell_idx
+        else:
+            cell_idx, keep = compact_samples(occ[None], cell_budget)
+            cell_idx, keep = cell_idx[0], keep[0]   # 0 on the padding
+            dst = torch.where(keep, cell_idx, n)
         ijk = torch.stack([cell_idx // (G * G), (cell_idx // G) % G,
                            cell_idx % G], dim=-1).float()
+        aabb = grid.aabb
         centers = aabb[0] + (ijk + 0.5) / G * (aabb[1] - aabb[0])
         net = self._net(state)
         rows, sig_cell = self.deformer.bake_packed_cache(
             state.deformer_cano, dstate, centers,
-            net_sigma_fn=lambda x: net(x)[1])
+            net_sigma_fn=lambda x: net(x)[1], cell_mask=keep)
         R = self.deformer.ROW_FLOATS
         K = rows.shape[-1] // R
-        cache = torch.zeros((G ** 3, rows.shape[-1]), device=rows.device)
-        cache[cell_idx] = rows
-        sig_table = torch.full((G ** 3,), -1.0, device=rows.device)
+        cache, sig_table = tables
+        cache.zero_()
+        cache[dst] = rows
         any_valid = (rows.reshape(-1, K, R)[..., 12] > 0.5).any(-1)
-        sig_table[cell_idx] = torch.where(any_valid, torch.relu(sig_cell),
-                                          torch.full_like(sig_cell, -1.0))
-        return cache, sig_table, int(cell_idx.numel())
+        sig_table.fill_(-1.0)
+        sig_table[dst] = torch.where(any_valid, torch.relu(sig_cell),
+                                     torch.full_like(sig_cell, -1.0))
 
-    def _session_bake(self, state: TrainState, batch, dstate,
-                      grid: DensityGridState,
-                      session: RenderSession | None):
-        """``_bake``, reused from ``session`` when its key matches:
-        (cache, sig_table, n_occ, baked)."""
-        key = (self._frame_key(state, batch, grid)
-               if session is not None else None)
-        if session is not None and session.last_bake is not None \
-                and session.last_bake[0] == key:
-            return (*session.last_bake[1], False)
-        out = self._bake(state, dstate, grid)
-        if session is not None:
-            session.last_bake = (key, out, (self.field, state, grid))
-        return (*out, True)
+    def _bake_plan(self, session: RenderSession | None, key, refs: tuple,
+                   grid: DensityGridState, cell_budget: int | None,
+                   rebake: bool = False) -> _BakePlan:
+        """Bake the session's tables, or reuse them when the last bake's
+        key (``_frame_key`` and the grid's identity) matches and
+        ``rebake`` is False; without a session, bake fresh tables. The
+        host knows which, so it picks the frame's program."""
+        limit = self.grid_size ** 3 if cell_budget is None else cell_budget
+        if session is None:
+            return _BakePlan(self._new_tables(), True, limit)
+        t = session.tables
+        if t is None or tuple(t[0].shape) != self._table_shape() \
+                or t[0].device != self.device:
+            t = session.tables = self._new_tables()
+            session.last_bake = None
+        key, refs = (key, id(grid)), refs + (grid,)
+        last = session.last_bake
+        if not rebake and last is not None and last[0] == key:
+            return _BakePlan(t, False, last[3], key, refs)
+        return _BakePlan(t, True, limit, key, refs)
+
+    @staticmethod
+    def _commit_bake(session: RenderSession | None,
+                     plan: _BakePlan | None) -> None:
+        """After a frame is enqueued: the session's tables hold its bake."""
+        if session is not None and plan is not None and plan.bake:
+            session.last_bake = (plan.key, plan.tables, plan.refs,
+                                 plan.limit)
 
     def _window_occupancy(self, sig_table: torch.Tensor, occ_fn,
                           aabb: torch.Tensor, pts: torch.Tensor,
@@ -847,18 +935,30 @@ class AvatarModel:
         return lambda x_ref, x: self.field.apply_shared(
             x_ref, x, state.center, state.scale, head="fused")
 
-    def _frame_key(self, state: TrainState, batch, grid):
-        """Bake-memo key: field, state and grid identity, parameter
-        versions (in-place updates bump them), betas and body pose by
-        content. The session pins the identified objects while it holds
+    def _frame_key(self, state: TrainState, batch) -> tuple[tuple, tuple]:
+        """Memo key of a frame's grid and bake (JAX's ``_frame_key``):
+        the field and the state by identity and the parameters' versions
+        (in-place updates bump them); betas and body pose (and, with
+        per-frame SMPL parameters, the frame ``idx``) by content when they
+        are host arrays or CPU tensors, by identity when they are device
+        tensors (reading them back would cost a sync per frame). Returns
+        (key, refs): refs pin the identified objects while a session holds
         the key, so their ids cannot be reused."""
-        def content(v):
-            return np.asarray(v.detach().cpu() if torch.is_tensor(v) else v,
-                              np.float32).tobytes()
-        return (id(self.field),
-                tuple(p._version for p in self.field.parameters()),
-                id(state), id(grid), self.grid_size,
-                content(batch["betas"]), content(batch["body_pose"]))
+        def part(v):
+            if torch.is_tensor(v):
+                if v.device.type != "cpu":
+                    return ("id", id(v))
+                v = v.detach()
+            return np.asarray(v, np.float32).tobytes()
+
+        idx = (batch.get("idx") if self.optimize_smpl
+               and state.smpl is not None else None)
+        key = (id(self.field),
+               tuple(p._version for p in self.field.parameters()),
+               id(state), self.grid_size, part(batch["betas"]),
+               part(batch["body_pose"]), None if idx is None else part(idx))
+        return key, (self.field, state, batch["betas"], batch["body_pose"],
+                     idx)
 
     def _block_size(self, H: int, W: int) -> int:
         """The prepass block: ``prepass_block``, else 3 or 2, whichever
@@ -869,32 +969,54 @@ class AvatarModel:
                 return p
         return 1
 
+    def _flat(self) -> bool:
+        return self.eval_sampling == "flat" and self._use_cache()
+
     @torch.no_grad()
     def render_stream(self, state: TrainState, batch, grid: DensityGridState,
                       image_shape: tuple[int, int],
-                      session: RenderSession | None = None) -> FlatStream:
+                      session: RenderSession | None = None, *,
+                      samp_budget: int | None = None,
+                      cell_budget: int | None = None) -> FlatStream:
         """Stages 1-5' of the flat render for a basis-only batch
         (``ray_basis`` (4 or 5, 3), ``betas``, ``body_pose``,
         ``global_orient``, ``transl``). Near/far come from the
-        world->SMPL ray transform, as in JAX."""
-        if self.eval_sampling != "flat" or not self._use_cache():
+        world->SMPL ray transform, as in JAX. ``samp_budget`` and
+        ``cell_budget`` are the static budgets of JAX's frame (the stream
+        then holds ``samp_budget`` samples, those past ``n_hit`` padding);
+        without them the selections take the exact counts, which reads
+        them back. The bake is reused from ``session`` when its key
+        matches."""
+        if not self._flat():
             raise ValueError("render_stream is the flat warp-cache render; "
                              "this model's mode renders through "
                              "render_rays_frame")
+        key, refs = self._frame_key(state, batch)
+        batch = self._resolve_batch(state, batch)
+        plan = self._bake_plan(session, key, refs, grid, cell_budget)
+        stream = self._flat_stream(state, batch, grid, image_shape, plan,
+                                   samp_budget, cell_budget)
+        self._commit_bake(session, plan)
+        return stream
+
+    def _flat_stream(self, state: TrainState, batch, grid: DensityGridState,
+                     image_shape: tuple[int, int], plan: _BakePlan,
+                     samp_budget: int | None, cell_budget: int | None
+                     ) -> FlatStream:
         dev = self.device
         G = self.grid_size
         H, W = image_shape
         p = self._block_size(H, W)
         Hb, Wb = H // p, W // p
         cano = state.deformer_cano
-        batch = self._resolve_batch(state, batch)
         # -- 1. frame bake --------------------------------------------------
         dstate = self._prepare(cano, batch)
         aabb = grid.aabb
         span = aabb[1] - aabb[0]
-        # -- 4. warp-cache bake (memoized per pose) --------------------------
-        cache, sig_table, n_occ, baked = self._session_bake(
-            state, batch, dstate, grid, session)
+        # -- 4. warp-cache bake, or the tables of the last one ---------------
+        if plan.bake:
+            self._bake(state, dstate, grid, plan.tables, cell_budget)
+        cache, sig_table = (t[:G ** 3] for t in plan.tables)
         _, field_fn, occ_fn, _, rows_fn = \
             self.deformer.make_packed_cache_fns(
                 cache, aabb, G, self._net(state), self.cache_n_cand,
@@ -928,7 +1050,13 @@ class AvatarModel:
         S_lat = occ.shape[-1]
         counts = occ.sum(-1)
         offsets = torch.cumsum(counts, 0) - counts
-        sidx = torch.nonzero(occ.reshape(-1))[:, 0]
+        if samp_budget is None:
+            sidx, smask = torch.nonzero(occ.reshape(-1))[:, 0], None
+        else:
+            # JAX's jnp.nonzero(size=samp_budget): the padding is index 0
+            # (a safe block) and masked out of the composite
+            sidx, smask = compact_samples(occ.reshape(1, -1), samp_budget)
+            sidx, smask = sidx[0], smask[0]
         blk_id = sidx // S_lat
         s_in = (sidx % S_lat).float()
         step_b = step[:, 0]
@@ -943,8 +1071,8 @@ class AvatarModel:
         o_s = rb.o[0]
         b0_s, bx_s, by_s = rb.d[0], rb.d[1], rb.d[2]
         by, bx = blk_id // Wb, blk_id % Wb
-        qy = torch.arange(p, device=dev).repeat_interleave(p)   # (pp,)
-        qx = torch.arange(p, device=dev).repeat(p)
+        q = torch.arange(p * p, device=dev)
+        qy, qx = q // p, q % p                                  # (pp,)
         pxs = (bx[None] * p + qx[:, None]).float()               # (pp, S)
         if basis_w.shape[0] == 5:
             d_un = (b0_s + pxs[..., None] * bx_s
@@ -972,16 +1100,20 @@ class AvatarModel:
         else:
             rgb_s, sigma_s, ok = field_fn(pts_q[qc], rows_blk, centers,
                                           pts_all=pts_q)
+        if smask is not None:
+            ok = ok & smask
         return FlatStream(sigma=sigma_s, rgb=rgb_s, valid=ok, z=z_s, dt=dt_s,
                           blk_id=blk_id, offsets=offsets, counts=counts,
-                          shape=(H, W, p), n_occ=n_occ, baked=baked)
+                          shape=(H, W, p), n_occ=grid.occupancy.sum(),
+                          n_hit=counts.sum(), baked=plan.bake)
 
     @staticmethod
     def composite_frame(stream: FlatStream, bg_color=None,
                         dtype: torch.dtype = torch.float32) -> dict:
         """Composite a flat stream into per-pixel rgb/depth/alpha/counter
-        (n = H*W rows, row-major pixels). ``dtype`` float64 runs the same
-        compositing formula in float64."""
+        (n = H*W rows, row-major pixels), with the stream's kept samples
+        ``n_samples`` and occupied cells ``n_occ`` (device scalars).
+        ``dtype`` float64 runs the same compositing formula in float64."""
         H, W, p = stream.shape
         Hb, Wb = H // p, W // p
         n = H * W
@@ -1001,23 +1133,66 @@ class AvatarModel:
               .reshape(-1, 3).expand(n, 3))
         return {"rgb": A[:, :3] + t_final[:, None] * bg, "depth": A[:, 3],
                 "alpha": A[:, 4], "counter": cnt,
-                "n_samples": int(stream.z.shape[0]), "n_occ": stream.n_occ}
+                "n_samples": stream.n_hit, "n_occ": stream.n_occ}
+
+    @torch.no_grad()
+    def _flat_frame(self, state: TrainState, batch, grid: DensityGridState,
+                    image_shape: tuple[int, int], plan: _BakePlan,
+                    samp_budget: int, cell_budget: int
+                    ) -> tuple[dict, torch.Tensor]:
+        """The flat frame's device program, which ``FrameGraphs``
+        captures: ``_flat_stream`` at static budgets and the composite.
+        Returns (rgb, depth, alpha, counter; the counts (3,) int64: kept
+        samples, occupied cells, evaluated samples)."""
+        stream = self._flat_stream(state, batch, grid, image_shape, plan,
+                                   samp_budget, cell_budget)
+        out = self.composite_frame(stream, batch.get("bg_color"))
+        return ({k: out[k] for k in FRAME_KEYS},
+                torch.stack([stream.n_hit, stream.n_occ, stream.n_hit]))
+
+    def _flat_program(self, graph: bool):
+        """The flat frame's program: one replay of its captured graph
+        (``FrameGraphs.run``) or ``_flat_frame`` run eagerly."""
+        if not graph:
+            return self._flat_frame
+        if self.frame_graphs is None:
+            from .frame_graph import FrameGraphs
+            self.frame_graphs = FrameGraphs(self)
+        return self.frame_graphs.run
 
     @torch.no_grad()
     def render_rays_frame(self, state: TrainState, batch,
                           grid: DensityGridState,
                           image_shape: tuple[int, int] | None = None,
                           session: RenderSession | None = None,
-                          chunk: int = 32768) -> dict:
+                          chunk: int = 32768, *,
+                          ray_budget: int | None = None,
+                          cell_budget: int | None = None) -> dict:
         """The ray-bundle eval modes (``eval_sampling`` "windows" or
         "dense", or ``use_warp_cache=False``) on a batch with per-pixel
         ``rays_o``/``rays_d`` (n rays): the frame bake, the packed warp
         cache (memoized in ``session``; not with ``use_warp_cache=False``),
         a prepass of ``prepass_steps`` strides per ray on the p x p block
         lattice when ``image_shape`` (H * W = n) has a block, else per ray,
-        then every hit ray rendered in chunks of ``chunk`` rays and the
-        rest left as background. Returns what ``render_frame`` returns;
+        then the hit rays rendered in chunks of ``chunk`` rays and the
+        rest left as background. ``ray_budget`` and ``cell_budget`` are
+        JAX's static budgets (the first ``ray_budget`` hit rays are
+        rendered); without them, the exact counts. Returns what
+        ``render_frame`` returns, the counts as device scalars;
         ``n_samples`` counts the evaluated samples."""
+        key, refs = self._frame_key(state, batch)
+        plan = (self._bake_plan(session, key, refs, grid, cell_budget)
+                if self._use_cache() else None)
+        out, counts = self._rays_frame(state, batch, grid, image_shape,
+                                       plan, chunk, ray_budget, cell_budget)
+        self._commit_bake(session, plan)
+        return {**out, "n_samples": counts[2], "n_occ": counts[1]}
+
+    def _rays_frame(self, state: TrainState, batch, grid: DensityGridState,
+                    image_shape: tuple[int, int] | None,
+                    plan: _BakePlan | None, chunk: int,
+                    ray_budget: int | None, cell_budget: int | None
+                    ) -> tuple[dict, torch.Tensor]:
         dev = self.device
         G = self.grid_size
         cano = state.deformer_cano
@@ -1029,11 +1204,14 @@ class AvatarModel:
         n = rays_s.o.shape[0]
         aabb = grid.aabb
         net = self._net(state)
-        use_cache, n_occ = self._use_cache(), 0
+        use_cache = plan is not None
         windows = use_cache and self.eval_sampling == "windows"
+        n_occ = torch.zeros((), dtype=torch.long, device=dev)
         if use_cache:
-            cache, sig_table, n_occ, _ = self._session_bake(
-                state, batch, dstate, grid, session)
+            n_occ = grid.occupancy.sum()
+            if plan.bake:
+                self._bake(state, dstate, grid, plan.tables, cell_budget)
+            cache, sig_table = (t[:G ** 3] for t in plan.tables)
             probe_fn, pfield_fn, occ_fn, field_pts, _ = \
                 self.deformer.make_packed_cache_fns(
                     cache, aabb, G, net, self.cache_n_cand)
@@ -1049,9 +1227,9 @@ class AvatarModel:
                     .reshape(-1, *x.shape[1:]) if p > 1 else x)
 
         def up(x):    # each block's value on its p x p pixels
-            return (x.reshape(Hb, Wb, *x.shape[1:]).repeat_interleave(p, 0)
-                    .repeat_interleave(p, 1).reshape(n, *x.shape[1:])
-                    if p > 1 else x)
+            return (x.reshape(Hb, 1, Wb, 1, *x.shape[1:])
+                    .expand(Hb, p, Wb, p, *x.shape[1:])
+                    .reshape(n, *x.shape[1:]) if p > 1 else x)
 
         o_sub, d_sub = sub(rays_s.o), sub(rays_s.d)
         nr_sub, fr_sub = sub(rays_s.near), sub(rays_s.far)
@@ -1090,9 +1268,17 @@ class AvatarModel:
             field_fn = self.deformer.make_field_fn(cano, dstate, net,
                                                    eval_mode=True)
         k_eval = self.k_cap or self.eval_n_steps
-        ray_idx = torch.nonzero(sel["hit"])[:, 0]
+        if ray_budget is None:
+            ray_idx = torch.nonzero(sel["hit"])[:, 0]
+            dst, m = ray_idx, ray_idx.numel()
+        else:
+            # JAX's jnp.nonzero(size=ray_budget): the padding renders ray 0
+            # and is written to a spare row
+            ray_idx, keep = compact_samples(sel["hit"][None], ray_budget)
+            ray_idx, keep = ray_idx[0], keep[0]
+            dst, m = torch.where(keep, ray_idx, n), ray_budget
         outs = []
-        for c0 in range(0, ray_idx.numel(), chunk):
+        for c0 in range(0, m, chunk):
             ri = ray_idx[c0:c0 + chunk]
             o, d, bg_c = rays_s.o[ri], rays_s.d[ri], bg[ri]
             if windows:
@@ -1119,26 +1305,32 @@ class AvatarModel:
                     occupancy_fn=occ_fn, aabb=aabb,
                     n_steps=self.eval_n_steps, k_cap=k_eval, bg_color=bg_c)
             outs.append(out)
-        rgb, depth = bg.clone(), torch.zeros(n, device=dev)
-        alpha, counter = torch.zeros(n, device=dev), torch.zeros(n, device=dev)
+        spare = torch.ones((1, 3), device=dev)
+        rgb = torch.cat([bg, spare])
+        depth, alpha, counter = (torch.zeros(n + 1, device=dev)
+                                 for _ in range(3))
         if outs:
             for full, k in ((rgb, "rgb"), (depth, "depth"), (alpha, "alpha"),
                             (counter, "counter")):
-                full[ray_idx] = torch.cat([getattr(o, k) for o in outs]) \
+                full[dst] = torch.cat([getattr(o, k) for o in outs]) \
                     .to(full.dtype)
-        return {"rgb": rgb, "depth": depth, "alpha": alpha,
-                "counter": counter, "n_samples": int(counter.sum()),
-                "n_occ": n_occ}
+        out = {"rgb": rgb[:n], "depth": depth[:n], "alpha": alpha[:n],
+               "counter": counter[:n]}
+        return out, torch.stack([sel["hit"].sum(), n_occ,
+                                 counter[:n].long().sum()])
 
     def _frame_grid(self, state: TrainState, batch,
-                    session: RenderSession | None) -> DensityGridState:
+                    session: RenderSession | None, key=None,
+                    refs: tuple = ()) -> DensityGridState:
         """The frame's own grid (``render_frame(grid=None)``):
         ``build_test_grid`` (``eval_grid="density"``) or
         ``build_pose_grid`` (``"smpl_shell"``), reused from the session
         when field params, betas, body pose and the grid kind match."""
         if self.eval_grid not in ("density", "smpl_shell"):
             raise ValueError(f"unknown eval_grid {self.eval_grid!r}")
-        key = (self._frame_key(state, batch, None), self.eval_grid)
+        if key is None:
+            key, refs = self._frame_key(state, batch)
+        key = (key, self.eval_grid)
         if session is not None and session.last_grid is not None \
                 and session.last_grid[0] == key:
             return session.last_grid[1]
@@ -1146,29 +1338,23 @@ class AvatarModel:
                 if self.eval_grid == "density"
                 else self.build_pose_grid(state, batch))
         if session is not None:
-            session.last_grid = (key, grid, (self.field, state))
+            session.last_grid = (key, grid, refs)
         return grid
 
-    def render_frame(self, state: TrainState, batch,
-                     grid: DensityGridState | None = None,
-                     image_shape: tuple[int, int] | None = None,
-                     session: RenderSession | None = None, *,
-                     chunk: int | None = None,
-                     payload: str | None = None) -> dict:
-        """Full-frame inference. The flat mode (``eval_sampling="flat"``
-        with the warp cache) reads the batch's ``ray_basis`` (the datasets'
-        full-image batches and the CLIs' camera batches) and needs
-        ``image_shape``; its per-pixel ``rays_o``/``rays_d``/``near``/
-        ``far``, if any, are not read. The other modes
-        (``render_rays_frame``) read ``rays_o``/``rays_d``, so a
-        basis-only batch raises there, as in JAX; ``chunk`` (default
-        32768) is their rays per marcher call. With SMPL parameters in the
-        state, the frame ``idx``'s optimized pose replaces the batch's.
-        ``grid`` None builds the frame's grid (see ``_frame_grid``).
-        ``payload`` sizes the JAX render's buffer and is accepted for its
-        signature only. Returns device tensors rgb (n, 3), depth, alpha,
-        counter (n,) plus the frame's sample and occupied-cell counts."""
-        flat = self.eval_sampling == "flat" and self._use_cache()
+    # -- the frame as JAX's one program: budgets, fetch, overflow ----------
+
+    @staticmethod
+    def _round_budget(m: int, chunk: int) -> tuple[int, int]:
+        """(budget, chunk) with budget the next chunk multiple of m, the
+        chunk cut to the power of two at or above m (JAX's)."""
+        chunk = min(chunk, 1 << (max(m, 1) - 1).bit_length())
+        n_chunks = max(1, -(-m // chunk))
+        return n_chunks * chunk, chunk
+
+    def _frame_is_flat(self, batch, image_shape) -> bool:
+        """Whether the frame renders through the flat path; refuses a
+        batch that its mode cannot render."""
+        flat = self._flat()
         if flat and image_shape is None:
             raise ValueError("the flat render needs image_shape")
         if flat and "ray_basis" not in batch:
@@ -1178,26 +1364,222 @@ class AvatarModel:
             raise ValueError(
                 "basis-only batches render through the flat path only "
                 "(rays_o/rays_d required otherwise)")
+        return flat
+
+    def _render_frame_async(self, state: TrainState, batch,
+                            grid: DensityGridState | None = None,
+                            image_shape: tuple[int, int] | None = None,
+                            session: RenderSession | None = None, *,
+                            chunk: int = 32768, ray_budget_frac: float = 0.5,
+                            graph: bool | None = None) -> dict:
+        """Enqueue a frame without a host sync (JAX's
+        ``_render_frame_async``); returns the in-flight record for
+        ``_finish_frame``. The budgets come from the session's learned
+        ones, else the priors: the flat stream's ``samples_per_ray`` per
+        block (at most ``prepass_steps``), the bake's ``cell_budget`` (the
+        learned one up to G^3), the ray-bundle modes' ``ray_budget_frac``
+        of the rays."""
+        flat = self._frame_is_flat(batch, image_shape)
+        bg = batch.get("bg_color")
+        if isinstance(bg, np.ndarray) and bg.size > 3:
+            # a uniform per-pixel background ships as one colour (JAX's)
+            flat_bg = bg.reshape(-1, 3)
+            if bool((flat_bg == flat_bg[:1]).all()):
+                batch = {**batch, "bg_color": flat_bg[0].copy()}
+        own = session is None
+        if own:   # this call's: the priors, no memo across calls
+            session = RenderSession()
+            session.tables = self._call_tables
+        key, refs = self._frame_key(state, batch)
         with torch.no_grad():
-            batch = self._resolve_batch(state, batch)
+            rbatch = self._resolve_batch(state, batch)
         if grid is None:
-            grid = self._frame_grid(state, batch, session)
-        if not flat:
-            return self.render_rays_frame(state, batch, grid, image_shape,
-                                          session, chunk=chunk or 32768)
-        stream = self.render_stream(state, batch, grid, image_shape, session)
-        return self.composite_frame(stream, batch.get("bg_color"))
+            grid = self._frame_grid(state, batch, session, key, refs)
+        G3 = self.grid_size ** 3
+        if flat:
+            H, W = image_shape
+            n = H * W
+            p = self._block_size(H, W)
+        else:
+            n = int(np.prod(np.shape(batch["rays_o"])[:-1]))
+            p = (self._block_size(*image_shape) if image_shape is not None
+                 and image_shape[0] * image_shape[1] == n else 1)
+        prepass_shape = None if p == 1 else (*image_shape, p)
+        skey = (n, prepass_shape)
+        rec = dict(state=state, batch=rbatch, grid=grid,
+                   image_shape=image_shape, session=session, key=key,
+                   refs=refs, skey=skey, n=n, flat=flat, chunk=chunk,
+                   graph=flat and self._graphed(graph),
+                   cell_budget=min(session.cell_budget.get(skey)
+                                   or self.cell_budget, G3))
+        if flat:
+            nb = n // (p * p)
+            hint = session.samp_budget.get(skey)
+            m = hint if hint is not None else int(nb * self.samples_per_ray)
+            rec["samp_budget"] = self._round_budget(
+                min(max(m, 1), nb * self.prepass_steps), chunk)[0]
+        else:
+            budget, rec["chunk_eff"] = self._round_budget(
+                max(int(n * ray_budget_frac), 1), chunk)
+            rec["ray_budget"] = min(budget, self._round_budget(n, chunk)[0])
+        self._dispatch_frame(rec)
+        if own:
+            self._call_tables = session.tables
+        return rec
+
+    def _dispatch_frame(self, rec: dict, rebake: bool = False) -> None:
+        """Enqueue ``rec``'s frame at its budgets: one graph replay (flat,
+        on a CUDA model) or the eager program; then the copy of its counts
+        to the host behind an event."""
+        session, use_cache = rec["session"], self._use_cache()
+        plan = (self._bake_plan(session, rec["key"], rec["refs"],
+                                rec["grid"], rec["cell_budget"], rebake)
+                if use_cache else None)
+        args = (rec["state"], rec["batch"], rec["grid"], rec["image_shape"],
+                plan)
+        if rec["flat"]:
+            out, counts = self._flat_program(rec["graph"])(
+                *args, rec["samp_budget"], rec["cell_budget"])
+        else:
+            with torch.no_grad():
+                out, counts = self._rays_frame(
+                    *args, rec["chunk_eff"], rec["ray_budget"],
+                    rec["cell_budget"])
+        self._commit_bake(session, plan)
+        rec.update(out=out, counts=_fetch_counts(counts),
+                   limit=plan.limit if use_cache else math.inf)
+
+    def _finish_frame(self, rec: dict) -> dict:
+        """Fetch an in-flight frame's counts (its one host read) and
+        learn the session's budgets from them (high-water marks: 1.15 x
+        the occupied cells in 4096-cell steps, at most G^3; 1.2 x the
+        kept samples, at least 8192); when a count overflowed its budget,
+        re-render at the learned budgets, which hold it (rebaking when the
+        cells overflowed), for at most 4 passes, then warn (JAX's
+        ``_finish_frame``). Returns rgb (n, 3), depth, alpha, counter
+        (n,) as device tensors, with the kept (evaluated) samples
+        ``n_samples`` and occupied cells ``n_occ``."""
+        n_hit, n_occ, n_samples = rec["counts"]()
+        session, skey = rec["session"], rec["skey"]
+        n, chunk = rec["n"], rec["chunk"]
+
+        def over(n_hit, n_occ):
+            ray_over = (n_hit > rec["samp_budget"] if rec["flat"]
+                        else rec["ray_budget"] < n
+                        and n_hit > rec["ray_budget"])
+            return ray_over, n_occ > rec["limit"]
+
+        for _ in range(4):
+            _high_water(session.cell_budget, skey, min(
+                self.grid_size ** 3,
+                max(4096, -(-int(n_occ * 1.15) // 4096) * 4096)))
+            if rec["flat"]:
+                _high_water(session.samp_budget, skey,
+                            max(8192, int(n_hit * 1.2)))
+            ray_over, cell_over = over(n_hit, n_occ)
+            if not (ray_over or cell_over):
+                break
+            # the budgets just learned hold the counts: the re-render and
+            # the next frames replay one graph (JAX re-renders at the
+            # counts, rounded)
+            if ray_over and rec["flat"]:
+                rec["samp_budget"] = self._round_budget(
+                    max(n_hit, session.samp_budget[skey]), chunk)[0]
+            elif ray_over:
+                rec["ray_budget"], rec["chunk_eff"] = \
+                    self._round_budget(n, chunk)
+            if cell_over:
+                rec["cell_budget"] = max(-(-n_occ // 4096) * 4096,
+                                         session.cell_budget[skey])
+            self._dispatch_frame(rec, rebake=cell_over)
+            n_hit, n_occ, n_samples = rec["counts"]()
+        else:
+            ray_over, cell_over = over(n_hit, n_occ)
+            if ray_over or cell_over:
+                budget = rec["samp_budget" if rec["flat"] else "ray_budget"]
+                warnings.warn(
+                    f"frame still overflowed after 4 re-render passes (hits "
+                    f"{n_hit} vs budget {budget}, occupied cells {n_occ} vs "
+                    f"{rec['limit']}); the returned image is truncated "
+                    f"(overflowed rays/samples rendered as background)",
+                    RuntimeWarning, stacklevel=3)
+        return {**rec["out"], "n_samples": n_samples, "n_occ": n_occ}
+
+    def render_frame(self, state: TrainState, batch,
+                     grid: DensityGridState | None = None,
+                     image_shape: tuple[int, int] | None = None,
+                     session: RenderSession | None = None, *,
+                     chunk: int | None = None,
+                     payload: str | None = None,
+                     graph: bool | None = None) -> dict:
+        """Full-frame inference: ``_render_frame_async`` and
+        ``_finish_frame``. The flat mode (``eval_sampling="flat"`` with
+        the warp cache) reads the batch's ``ray_basis`` (the datasets'
+        full-image batches and the CLIs' camera batches) and needs
+        ``image_shape``; its per-pixel ``rays_o``/``rays_d``/``near``/
+        ``far``, if any, are not read. The other modes
+        (``render_rays_frame``) read ``rays_o``/``rays_d``, so a
+        basis-only batch raises there, as in JAX; ``chunk`` (default
+        32768) is their rays per marcher call. With SMPL parameters in the
+        state, the frame ``idx``'s optimized pose replaces the batch's.
+        ``grid`` None builds the frame's grid (see ``_frame_grid``).
+        ``session`` carries the learned budgets and the memos across
+        calls (without one, each call starts from the priors). On a CUDA
+        model the flat frame replays a captured CUDA graph
+        (``frame_graph.FrameGraphs``; a failed capture raises);
+        ``graph=False`` runs it eagerly. ``payload`` sizes the JAX
+        render's buffer and is accepted for its signature only. Returns
+        device tensors rgb (n, 3), depth, alpha, counter (n,) plus the
+        frame's sample and occupied-cell counts."""
+        return self._finish_frame(self._render_frame_async(
+            state, batch, grid, image_shape, session, chunk=chunk or 32768,
+            graph=graph))
 
     def render_frames(self, state: TrainState, batches,
                       grid: DensityGridState | None = None,
                       image_shape: tuple[int, int] | None = None,
                       session: RenderSession | None = None, *,
                       chunk: int | None = None,
-                      payload: str | None = None):
-        """Frame-sequence renderer: one ``RenderSession`` spans the
-        sequence (created here if not passed), so frames of one pose share
-        a grid and a bake. Yields ``render_frame`` dicts."""
+                      payload: str | None = None, depth: int = 2,
+                      graph: bool | None = None):
+        """Pipelined frame-sequence renderer (JAX's): keeps ``depth``
+        frames in flight, so frame i's fetch waits while frame i+1 is
+        already enqueued. One ``RenderSession`` spans the sequence
+        (created here if not passed), so frames of one pose share a grid
+        and a bake and later frames take the budgets learned from earlier
+        ones. Yields ``render_frame`` dicts."""
         session = session or RenderSession()
+        inflight = []
         for batch in batches:
-            yield self.render_frame(state, batch, grid=grid,
-                                    image_shape=image_shape, session=session)
+            inflight.append(self._render_frame_async(
+                state, batch, grid, image_shape, session,
+                chunk=chunk or 32768, graph=graph))
+            if len(inflight) >= depth:
+                yield self._finish_frame(inflight.pop(0))
+        for rec in inflight:
+            yield self._finish_frame(rec)
+
+
+FRAME_KEYS = ("rgb", "depth", "alpha", "counter")
+
+
+def _high_water(table: dict, key, want: int) -> None:
+    cur = table.get(key)
+    table[key] = want if cur is None else max(cur, want)
+
+
+def _fetch_counts(counts: torch.Tensor):
+    """A reader of a frame's counts (3,) int64: on the card a copy into
+    pinned memory behind an event, so that reading waits for the frame
+    and nothing else; on the CPU the counts themselves."""
+    if counts.device.type != "cuda":
+        return counts.tolist
+    host = torch.empty(counts.shape, dtype=counts.dtype, pin_memory=True)
+    host.copy_(counts, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+
+    def read():
+        done.synchronize()
+        return host.tolist()
+    return read

@@ -35,6 +35,7 @@ launches and rows captured into each graph are added on each replay.
 from __future__ import annotations
 
 import time
+import weakref
 from dataclasses import dataclass
 
 import torch
@@ -79,12 +80,19 @@ class StepGraphs:
     host time they took (warm-up included)."""
 
     def __init__(self, model):
-        self.model = model
+        # the model owns this object: a weak reference back, so that the
+        # model and its graphs' memory go when the model's last user does
+        # (a reference cycle would keep them until a full gc pass)
+        self._model = weakref.ref(model)
         self.device = model.device
         self.stream = torch.cuda.Stream(self.device)
         self.captures = 0
         self.capture_seconds = 0.0
         self._reset(None)
+
+    @property
+    def model(self):
+        return self._model()
 
     def _reset(self, signature) -> None:
         self.signature = signature

@@ -5,7 +5,8 @@ against the same step on the CPU, the NGP hash encode and field, the
 nearest-vertex SMPL deformer (deform and bake) and LPIPS on the card
 against the CPU, the eval modes' frames (the head launched in each),
 the triplane field on the card against the CPU, and the training step
-captured as CUDA graphs against the eager step. They skip where there is
+captured as CUDA graphs against the eager step, and the flat frame
+captured as CUDA graphs against the eager frame. They skip where there is
 no card. This
 file imports no jax; on a machine that has only PyTorch, skip the
 jax-loading conftest:
@@ -539,3 +540,50 @@ def test_step_graph_counts_the_head_on_replay(cuda):
     # two replays, each warm-up one launch of the same rows
     assert fused_field_head.launches == 2 + g.captures
     assert fused_field_head.rows == eager[1] + g.captures * eager[1] // 2
+
+
+# -- the flat frame as captured graphs ------------------------------------------
+
+def test_frame_graph_matches_the_eager_frame(cuda):
+    """A 48 px turntable of 3 and a new pose through ``render_frames`` on
+    captured frame graphs against the same budgeted frames run eagerly on
+    the card (``graph=False``): every frame within 1e-6; the head's
+    launches rise by the captured launches on each replay; the turntable
+    reuses the bake (a reuse graph) and the new pose bakes again."""
+    import numpy as np
+    from instantavatar_torch.data.rays import make_ray_basis
+    from instantavatar_torch.train import RenderSession
+    from chip_smoke import make_avatar
+    H = 48
+    f = 2000.0 * H / 540
+    K = np.array([[f, 0, H / 2], [0, f, H / 2], [0, 0, 1]])
+    b = {"ray_basis": make_ray_basis(K, np.eye(4)),
+         "betas": np.zeros(10, np.float32),
+         "body_pose": np.zeros(69, np.float32),
+         "global_orient": np.zeros(3, np.float32),
+         "transl": np.array([0.0, 0.15, 5.0], np.float32)}
+    frames = [{**b, "global_orient": np.array([0.0, y, 0.0], np.float32)}
+              for y in (0.0, 0.4, 0.8)]
+    frames.append({**b, "body_pose": b["body_pose"] + 0.1})
+    av = make_avatar(cuda, deformer_res=32, grid_size=32, voxel_res=16,
+                     plane_res=32, param_seed=3, sigma_bias=100.0,
+                     shell_margin=0.08)
+    state = av.init(np.zeros(10, np.float32))
+    grid = av.build_pose_grid(state, b)
+    runs = {}
+    for graph in (False, True):
+        before = fused_field_head.launches
+        replays = av.frame_graphs.replays if av.frame_graphs else 0
+        runs[graph] = list(av.render_frames(
+            state, frames, grid=grid, image_shape=(H, H),
+            session=RenderSession(), graph=graph))
+        torch.cuda.synchronize()
+        runs[graph, "launches"] = fused_field_head.launches - before
+    g = av.frame_graphs
+    assert g.captures >= 2 and g.replays - replays >= len(frames)
+    assert {k[3] for k in g.graphs} == {True, False}   # bake and reuse
+    assert runs[True, "launches"] >= len(frames)
+    for e, c in zip(runs[False], runs[True]):
+        assert e["n_samples"] == c["n_samples"] > 0
+        for k in ("rgb", "depth", "alpha", "counter"):
+            assert float((e[k] - c[k]).abs().max()) <= 1e-6, k

@@ -173,3 +173,24 @@ def card_render_rank(rank: int, world: int, work: str) -> None:
     out = _load(Path(work) / f"rank{rank}.pt")
     out["launches"] = fused_field_head.launches
     torch.save(out, Path(work) / f"rank{rank}.pt")
+
+
+def overflow_rank(rank: int, world: int, work: str) -> None:
+    """The frame through ``DPFrameRenderer`` at the model's priors, then
+    with priors too small for its samples and cells (each rank one band):
+    both frames and the renders the forced one took."""
+    work = Path(work)
+    inp = _load(work / "inputs.pt")
+    avatar, state, grid = build_scene(inp["scene"])
+    rend = DPFrameRenderer(avatar, make_mesh(n_ray=world))
+    out = {"free": rend.render_frame(state, inp["frame"], grid=grid,
+                                     image_shape=inp["image_shape"])}
+    avatar.samples_per_ray, avatar.cell_budget = inp["tiny"]
+    passes = []
+    dispatch = rend._dispatch
+    rend._dispatch = lambda rec, rebake=False: (
+        passes.append(rebake), dispatch(rec, rebake))
+    out["forced"] = rend.render_frame(state, inp["frame"], grid=grid,
+                                      image_shape=inp["image_shape"])
+    out["passes"] = passes
+    torch.save(out, work / f"rank{rank}.pt")
