@@ -110,21 +110,21 @@ points a user calls, and checks it in phases:
      as in phase 5, against the mode's frame with the plain head
      (PSNR-bounded);
  15. the parallel layer (``instantavatar_torch.parallel``) on the one
-     card: 20 DP training steps of phase 7's configuration (the first a
-     grid update) on 2 ranks over gloo sharing the card (parameters
-     bit-identical on both afterwards; step 1's losses within 1e-4 of the
-     single-process step on the whole batch fed the ranks' draws, its
-     grid exactly) and on one NCCL rank (step 1 equal to the
-     single-process step to the bit, both with PyTorch's deterministic
-     algorithms); ms/step and the bytes reduced; phase 4's 540 px
+     card: 21 DP training steps of phase 7's configuration (the first a
+     grid update) on 2 ranks over gloo sharing the card, eagerly (a gloo
+     group cannot be captured; parameters bit-identical on both
+     afterwards; step 1's losses within 1e-4 of the single-process step
+     on the whole batch fed the ranks' draws, its grid exactly); ms/step
+     and the bytes reduced (the one-NCCL-rank run is phase 18's); phase
+     4's 540 px
      turntable of 3 on 2 gloo ranks in the stride and band layouts
      (each rank launching the head, the bake memo engaged, PSNR-bounded
      against the single-device frames) and the gather of a frame's bands
      timed; one band's program alone for R = 2, 4, 8 (stride) and 4
      (band) beside the replicated bake; ``train_multi`` with two copies
-     of phase 11's sequence for 2 epochs, each subject's checkpoint
-     through ``animate``. Spawned ranks report their head launches and
-     rows through files;
+     of phase 11's sequence for 2 epochs (on graphs, its default on
+     CUDA), each subject's checkpoint through ``animate``. Spawned ranks
+     report their head launches and rows through files;
  16. the captured step against the eager one, at full width, for the
      flagship (phase 7's), the NGP conf default (phase 12's) and the
      demo's fit (SMPL deformer, LPIPS, SMPL optimization) and train
@@ -148,7 +148,22 @@ points a user calls, and checks it in phases:
      graphs captured and their capture time, the learned budgets against
      the counts; a frame at priors too small for it must re-render
      (rebaking) to the same frame. Every flat frame of phases 4-16 runs
-     the same budgeted, graphed frame.
+     the same budgeted, graphed frame. The animate sequence also runs
+     with graph frames on eager grids (PR 11's form) beside the eager and
+     the all-graph runs;
+ 18. JAX's last eager programs on graphs, each eager and then on graphs
+     from one state and seed, bit-equal under deterministic algorithms,
+     with warm ms, one profiled call's device kernels, busy share and
+     host launch calls, peak memory and the graphs captured with their
+     seconds: (18.1) the DP step on one spawned NCCL rank, phase 15's
+     inputs (its ``all_reduce`` real and inside the graph; NCCL puts no
+     two ranks on one card), steps 1 (grid update) and 2 (plain), the
+     eager step also against the single-process step; (18.2)
+     ``train_multi``'s combined step on two subjects of phase 7's
+     configuration in one process, 4 combined steps (the CLI itself runs
+     on graphs in phase 15); (18.3) the animate poses' grids
+     (``build_pose_grid``, and ``build_test_grid`` on two), graph equal to
+     eager exactly, ms per grid per mode.
 
 Any failed check, a spawned rank's non-zero exit or a spawned run past
 its time limit exits non-zero. The last stdout line is
@@ -157,9 +172,9 @@ and the line before it lists the kernels, with the kernel's launches in
 each path (turntable, training, val render, phase 11's CLI train run,
 Trainer validation, Trainer test, animate and novel_view, and phase 13's
 SMPL-deformer voxel-triplane frame, phase 14's eval modes, phase
-15's ranks and paths, phase 16's flagship graph run and phase 17's
-frame graphs; the NGP and triplane paths evaluate the fp32 head and
-launch no kernel). A captured step's or frame's launches are counted
+15's ranks and paths, phase 16's flagship graph run, phase 17's
+frame graphs and phase 18's DP, multi-subject and test-grid graphs; the
+NGP and triplane paths evaluate the fp32 head and launch no kernel). A captured step's or frame's launches are counted
 once per replay, and the eager warm-up before each capture launches the
 head once more. ``--profile DIR`` also
 writes torch.profiler summaries and traces of two steady-state frames and
@@ -271,6 +286,8 @@ SPAWN_TIMEOUT = 300.0
 # phase 16: steps run eager and on graphs from one state, the Trainer's
 # group size, the generator seed, the warm steps timed per kind
 GRAPH_STEPS, GRAPH_GROUP, GRAPH_SEED, GRAPH_TIMED = 20, 4, 16, 5
+# phase 18: train_multi's combined steps run eager and on graphs
+MULTI_GRAPH_STEPS = 4
 # phase 17: the animate poses, the untimed passes before a timed one, the
 # graph frame's PSNR floor against the exact-count eager frame, and the
 # priors that force an overflow (samples per block, cells)
@@ -933,16 +950,17 @@ def _record_calls(module, attr: str, describe, steps_only: bool = False):
         finally:
             sink[0] = prev
 
-    def capture(self, state, key):
+    def capture(self, state, key, *a):
         capturing[0] = []
         try:
-            return real_capture(self, state, key)
+            return real_capture(self, state, key, *a)
         finally:
             captured[(id(self), key)], capturing[0] = capturing[0], None
 
-    def run(self, state, *a):
-        out = real_run(self, state, *a)
-        calls.extend(captured[(id(self), self.model.graph_key(state.step))])
+    def run(self, state, *a, **kw):
+        out = real_run(self, state, *a, **kw)
+        calls.extend(captured[(id(self), self.key(
+            state, kw.get("update"), kw.get("reduce")))])
         return out
 
     def stop():
@@ -1939,17 +1957,14 @@ def _flat_params(avatar) -> torch.Tensor:
                       for p in avatar.field.parameters()]).cpu()
 
 
-def _dp_train_rank(rank: int, world: int, work: str, tag: str,
-                   deterministic: bool) -> None:
+def _dp_train_rank(rank: int, world: int, work: str) -> None:
     """Phase 15 rank: ``dp_train_in.pt``'s steps of phase 7's flagship
-    configuration over the ray group (the first a grid update), from the
-    parent's checkpoint, this rank's draws from ``rank_draws``, with
-    PyTorch's deterministic algorithms when ``deterministic``. Writes the
-    first step's losses, grid and parameters, the last parameters, the
-    step times, the bytes reduced per step, and the head's launches and
-    rows of the run, and the plain step's bucket all-reduced alone. The
-    deterministic algorithms (slow: a sorted ``index_add_``) hold for the
-    first step only."""
+    configuration over the ray group of gloo ranks (the first a grid
+    update), from the parent's checkpoint, this rank's draws from
+    ``rank_draws``, eagerly (a gloo group cannot be captured). Writes the
+    first step's losses and grid, the last parameters, the step times,
+    the bytes reduced per step, and the head's launches and rows of the
+    run, and the plain step's bucket all-reduced alone."""
     import torch.distributed as dist
     from instantavatar_torch.kernels import fused_field_head
     from instantavatar_torch.parallel import (make_dp_train_step, make_mesh,
@@ -1958,7 +1973,6 @@ def _dp_train_rank(rank: int, world: int, work: str, tag: str,
     work = Path(work)
     inp = torch.load(work / "dp_train_in.pt", weights_only=False)
     dev = _rank_device(inp["device"])
-    torch.use_deterministic_algorithms(deterministic, warn_only=True)
     avatar = make_trainer(dev, **inp["trainer_kw"])
     state = restore_checkpoint(inp["ckpt"], avatar.init(inp["betas"]),
                                avatar.field)
@@ -1983,8 +1997,6 @@ def _dp_train_rank(rank: int, world: int, work: str, tag: str,
             out["losses0"] = {k: float(v) for k, v in losses.items()}
             out["occupancy0"] = state.grid.occupancy.cpu()
             out["density0"] = state.grid.density_cached.cpu()
-            out["params0"] = _flat_params(avatar)
-            torch.use_deterministic_algorithms(False)
     out["params"] = _flat_params(avatar)
     out["launches"], out["rows"] = (fused_field_head.launches,
                                     fused_field_head.rows)
@@ -1998,7 +2010,7 @@ def _dp_train_rank(rank: int, world: int, work: str, tag: str,
         if i >= 2:
             ms.append(1e3 * (time.perf_counter() - t0))
     out["all_reduce_ms"] = statistics.median(ms)
-    torch.save(out, work / f"dp_train_{tag}_{rank}.pt")
+    torch.save(out, work / f"dp_train_gloo_{rank}.pt")
 
 
 def _dp_render_rank(rank: int, world: int, work: str) -> None:
@@ -2062,103 +2074,102 @@ def _load_ranks(work: Path, prefix: str, world: int) -> list[dict]:
                        weights_only=False) for r in range(world)]
 
 
-def dp_train_check(dev, work: Path, *, size=TRAIN_SIZE,
-                   n_train=TRAIN_FRAMES, **config) -> dict:
-    """Phase 15.1: DP_STEPS training steps of phase 7's configuration
-    (``config``: ``make_trainer``'s sizes) on DP_RANKS gloo ranks sharing
-    the card, then on one NCCL rank, each rank's first step held against
-    the single-process step. Returns each run's head launches and rows."""
-    from instantavatar_torch.parallel import make_mesh, rank_draws, run_ranks
-    from instantavatar_torch.train import StepDraws
-    from instantavatar_torch.train.harness import (restore_checkpoint,
-                                                   save_checkpoint)
+def _dp_inputs(dev, work: Path, *, size=TRAIN_SIZE, n_train=TRAIN_FRAMES,
+               **config) -> dict:
+    """Phases 15.1 and 18.1's inputs: phase 7's configuration
+    (``config``: ``make_trainer``'s sizes), a checkpoint of its state 0
+    and DP_STEPS batches, written to ``dp_train_in.pt``."""
+    from instantavatar_torch.train.harness import save_checkpoint
     _, train, _ = capsule_splits(dev, size, n_train, 1)
     trainer_kw = {"steps_per_epoch": n_train, **config}
     avatar = make_trainer(dev, **trainer_kw)
     betas = train.smpl_params["betas"]
     state = avatar.init(betas, generator=torch.Generator(
         device=dev).manual_seed(0))
-    ckpt = save_checkpoint(work / "dp_ckpt", state, avatar.field)
-    batches = [train[i % n_train] for i in range(DP_STEPS)]
-    torch.save({"device": str(dev), "trainer_kw": trainer_kw, "ckpt": ckpt,
-                "betas": betas, "batches": batches}, work / "dp_train_in.pt")
-    n_rays = int(np.prod(batches[0]["rays_o"].shape[:-1]))
-    paths = {}
-    for tag, backend, world in (("gloo", "gloo", DP_RANKS),
-                                ("nccl", "nccl" if dev.type == "cuda"
-                                 else "gloo", 1)):
-        # the one-rank run and its reference take PyTorch's deterministic
-        # algorithms (index_add_'s CUDA atomics sum in any order), so that
-        # two runs of one step can agree to the bit
-        exact = world == 1
-        secs = run_ranks(_dp_train_rank, world, backend=backend,
-                         store_dir=work, args=(str(work), tag, exact),
-                         timeout=SPAWN_TIMEOUT,
-                         threads=torch.get_num_threads())
-        ranks = _load_ranks(work, f"dp_train_{tag}", world)
-        ref = make_trainer(dev, **trainer_kw)
-        rstate = restore_checkpoint(ckpt, ref.init(betas), ref.field)
-        mesh = make_mesh(n_ray=world)
-        parts = [rank_draws(ref, mesh, DP_SEED, n_rays // world, True, ray=r)
-                 for r in range(world)]
-        draws = StepDraws(torch.cat([d.jitter for d in parts]),
-                          torch.cat([d.noise for d in parts]),
-                          parts[0].grid_jitter)
-        torch.use_deterministic_algorithms(exact, warn_only=True)
-        try:
-            rstate, rl = ref.train_step_update(rstate, batches[0], draws)
-        finally:
-            torch.use_deterministic_algorithms(False)
-        rl = {k: float(v) for k, v in rl.items()}
-        r0 = ranks[0]
-        gap = max(abs(r0["losses0"][k] / rl[k] - 1.0) for k in
-                  ("mse_loss", "loss_alpha", "reg_alpha", "reg_occupancy",
-                   "loss"))
-        occ_ok = torch.equal(r0["occupancy0"], rstate.grid.occupancy.cpu())
-        dens = float((r0["density0"]
-                      - rstate.grid.density_cached.cpu()).abs().max())
-        # step 0 is cold (and deterministic in the one-rank run)
-        plain = [m for m, u in zip(r0["ms"][1:], r0["update"][1:]) if not u]
-        upd = [m for m, u in zip(r0["ms"][1:], r0["update"][1:]) if u]
-        print(f"[dp train] {tag}: {world} rank(s) on "
-              f"{torch.cuda.get_device_name(0) if dev.type == 'cuda' else dev}"
-              f", {DP_STEPS} steps of phase 7's configuration "
-              f"({n_rays // world} rays per rank): median "
-              f"{statistics.median(plain):.2f} ms per plain step, "
-              f"{statistics.median(upd or [math.nan]):.2f} ms per warm "
-              f"grid-update step, the cold first {r0['ms'][0]:.0f} ms; "
-              f"{r0['bytes'][1] / 2 ** 20:.2f} MiB reduced per plain step "
-              f"({r0['bytes'][0] / 2 ** 20:.2f} with the grid), its "
-              f"all_reduce alone {r0['all_reduce_ms']:.2f} ms (median of "
-              f"5); the ranks ran {secs:.1f} s with start-up")
-        print(f"[dp train] {tag}: step 1 against the single-process step "
-              f"on the whole batch with the ranks' draws: worst loss gap "
-              f"{gap:.2e} (tol {DP_LOSS_RTOL if world > 1 else 0}), grid "
-              f"occupancy equal {occ_ok}, density max|diff| {dens:.3e}")
-        check(occ_ok and dens == 0.0, f"{tag}: the DP grid update differs")
-        if world > 1:
-            check(gap <= DP_LOSS_RTOL, f"{tag}: DP losses disagree")
-            same = all(torch.equal(r["params"], r0["params"])
-                       for r in ranks[1:])
-            print(f"[dp train] {tag}: parameters bit-identical on the "
-                  f"{world} ranks after {DP_STEPS} steps: {same}; two ranks "
-                  f"share one card here, so the step time is no scaling "
-                  f"number")
-            check(same, "the DP ranks' parameters drifted apart")
-        else:
-            same = (r0["losses0"] == rl
-                    and torch.equal(r0["params0"], _flat_params(ref)))
-            print(f"[dp train] {tag}: one rank's step (its all_reduce the "
-                  f"identity) equals the single-process step exactly "
-                  f"(losses, grid, parameters; deterministic algorithms in "
-                  f"both): {same}")
-            check(same, "the one-rank DP step differs from the "
-                  "single-process step")
-        launches = sum(r["launches"] for r in ranks)
-        check(dev.type != "cuda" or launches > 0,
-              f"dp_train_{tag} never launched the CUDA head")
-        paths[f"dp_train_{tag}"] = (launches, sum(r["rows"] for r in ranks))
-    return paths
+    inp = {"device": str(dev), "trainer_kw": trainer_kw,
+           "ckpt": save_checkpoint(work / "dp_ckpt", state, avatar.field),
+           "betas": betas,
+           "batches": [train[i % n_train] for i in range(DP_STEPS)]}
+    torch.save(inp, work / "dp_train_in.pt")
+    return inp
+
+
+def _single_step(dev, inp: dict, world: int, deterministic: bool):
+    """Step 1 of ``inp`` in one process on the whole batch, fed the
+    ``world`` ranks' draws: (avatar, state, losses)."""
+    from instantavatar_torch.parallel import make_mesh, rank_draws
+    from instantavatar_torch.train import StepDraws
+    from instantavatar_torch.train.harness import restore_checkpoint
+    batch = inp["batches"][0]
+    n_rays = int(np.prod(batch["rays_o"].shape[:-1]))
+    ref = make_trainer(dev, **inp["trainer_kw"])
+    rstate = restore_checkpoint(inp["ckpt"], ref.init(inp["betas"]),
+                                ref.field)
+    mesh = make_mesh(n_ray=world)
+    parts = [rank_draws(ref, mesh, DP_SEED, n_rays // world, True, ray=r)
+             for r in range(world)]
+    draws = StepDraws(torch.cat([d.jitter for d in parts]),
+                      torch.cat([d.noise for d in parts]),
+                      parts[0].grid_jitter)
+    torch.use_deterministic_algorithms(deterministic, warn_only=True)
+    try:
+        rstate, rl = ref.train_step_update(rstate, batch, draws)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return ref, rstate, rl
+
+
+def dp_train_check(dev, work: Path, **config) -> dict:
+    """Phase 15.1: DP_STEPS training steps of phase 7's configuration
+    (``config``: ``_dp_inputs``'s sizes) on DP_RANKS gloo ranks sharing
+    the card, eagerly (gloo cannot be captured), the first step held
+    against the single-process step. Returns the run's head launches and
+    rows. The one-NCCL-rank run is phase 18.1's."""
+    from instantavatar_torch.parallel import run_ranks
+    inp = _dp_inputs(dev, work, **config)
+    n_rays = int(np.prod(inp["batches"][0]["rays_o"].shape[:-1]))
+    secs = run_ranks(_dp_train_rank, DP_RANKS, backend="gloo",
+                     store_dir=work, args=(str(work),),
+                     timeout=SPAWN_TIMEOUT, threads=torch.get_num_threads())
+    ranks = _load_ranks(work, "dp_train_gloo", DP_RANKS)
+    _, rstate, rl = _single_step(dev, inp, DP_RANKS, False)
+    rl = {k: float(v) for k, v in rl.items()}
+    r0 = ranks[0]
+    gap = max(abs(r0["losses0"][k] / rl[k] - 1.0) for k in
+              ("mse_loss", "loss_alpha", "reg_alpha", "reg_occupancy",
+               "loss"))
+    occ_ok = torch.equal(r0["occupancy0"], rstate.grid.occupancy.cpu())
+    dens = float((r0["density0"]
+                  - rstate.grid.density_cached.cpu()).abs().max())
+    # step 0 is cold
+    plain = [m for m, u in zip(r0["ms"][1:], r0["update"][1:]) if not u]
+    upd = [m for m, u in zip(r0["ms"][1:], r0["update"][1:]) if u]
+    print(f"[dp train] gloo: {DP_RANKS} ranks on "
+          f"{torch.cuda.get_device_name(0) if dev.type == 'cuda' else dev}"
+          f", eager (a gloo group cannot be captured), {DP_STEPS} steps "
+          f"of phase 7's configuration ({n_rays // DP_RANKS} rays per "
+          f"rank): median {statistics.median(plain):.2f} ms per plain "
+          f"step, {statistics.median(upd or [math.nan]):.2f} ms per warm "
+          f"grid-update step, the cold first {r0['ms'][0]:.0f} ms; "
+          f"{r0['bytes'][1] / 2 ** 20:.2f} MiB reduced per plain step "
+          f"({r0['bytes'][0] / 2 ** 20:.2f} with the grid), its "
+          f"all_reduce alone {r0['all_reduce_ms']:.2f} ms (median of "
+          f"5); the ranks ran {secs:.1f} s with start-up")
+    print(f"[dp train] gloo: step 1 against the single-process step on "
+          f"the whole batch with the ranks' draws: worst loss gap "
+          f"{gap:.2e} (tol {DP_LOSS_RTOL}), grid occupancy equal "
+          f"{occ_ok}, density max|diff| {dens:.3e}")
+    check(occ_ok and dens == 0.0, "gloo: the DP grid update differs")
+    check(gap <= DP_LOSS_RTOL, "gloo: DP losses disagree")
+    same = all(torch.equal(r["params"], r0["params"]) for r in ranks[1:])
+    print(f"[dp train] gloo: parameters bit-identical on the {DP_RANKS} "
+          f"ranks after {DP_STEPS} steps: {same}; two ranks share one "
+          f"card here, so the step time is no scaling number")
+    check(same, "the DP ranks' parameters drifted apart")
+    launches = sum(r["launches"] for r in ranks)
+    check(dev.type != "cuda" or launches > 0,
+          "dp_train_gloo never launched the CUDA head")
+    return {"dp_train_gloo": (launches, sum(r["rows"] for r in ranks))}
 
 
 def dp_render_check(dev, avatar, state, grid, batch, work: Path) -> dict:
@@ -2276,7 +2287,9 @@ def multi_phase(dev, work: Path, cli: dict) -> dict:
           and all(o["state"].step == MULTI_EPOCHS * CLI_TRAIN for o in out),
           "train_multi did not train every subject")
     print(f"[multi] train_multi, {len(out)} subjects on one card, "
-          f"{MULTI_EPOCHS} epochs: {ms:.2f} ms per combined step "
+          f"{MULTI_EPOCHS} epochs, each combined step {len(out)} graph "
+          f"replays (one per subject's model, the CLI's default on CUDA; "
+          f"the captures included): {ms:.2f} ms per combined step "
           f"({ms / len(out):.2f} per subject; phase 11's single-subject "
           f"CLI: {cli['ms_per_step']:.2f} ms/step)")
     res = {"paths": {"train_multi": tuple(paths)}, "ms_per_step": ms}
@@ -2371,14 +2384,19 @@ def _profile_step(fn) -> dict:
             "host_launches": sum(1 for e in ev if e.name in LAUNCH_APIS)}
 
 
-def _timed_steps(avatar, state, batch, graph: bool, update: bool) -> dict:
+def _timed_steps(avatar, state, batch, graph: bool, update: bool,
+                 step=None) -> dict:
     """Warm ms per step (median of GRAPH_TIMED after one untimed call,
     the capture's in graph mode), peak memory over those calls, one
     profiled step; the steps sit past step 1000 (no warm-up, latch or
-    noise: most of a run) at the configuration's cadence."""
+    noise: most of a run) at the configuration's cadence. ``step(state,
+    batch, generator)`` runs one step (default ``avatar.step``)."""
     interval = avatar.grid_update_interval
     if not update and interval == 1:
         return {}
+    if step is None:
+        def step(st, b, gen):
+            return avatar.step(st, b, gen, graph=graph)
     s0 = interval * math.ceil(1000 / interval) + (0 if update else 1)
     gen = torch.Generator(device=avatar.device).manual_seed(GRAPH_SEED)
     torch.cuda.synchronize()
@@ -2387,14 +2405,25 @@ def _timed_steps(avatar, state, batch, graph: bool, update: bool) -> dict:
     for j in range(GRAPH_TIMED + 1):
         st = state._replace(step=s0 + j * interval)
         t0 = time.perf_counter()
-        avatar.step(st, batch, gen, graph=graph)
+        step(st, batch, gen)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     res = {"ms": statistics.median(times[1:]),
            "peak_mib": torch.cuda.max_memory_allocated() / 2 ** 20}
-    res.update(_profile_step(lambda: avatar.step(
-        state._replace(step=s0), batch, gen, graph=graph)))
+    res.update(_profile_step(lambda: step(state._replace(step=s0), batch,
+                                          gen)))
     return res
+
+
+def _timing_line(tag: str, kind: str, t: dict, per: str = "step",
+                 reps: int | None = None) -> str:
+    return (f"{tag} {kind}: {t['ms']:.2f} ms/{per} (median of "
+            f"{reps or GRAPH_TIMED}, warm); one profiled {per}: "
+            f"{t['kernels']} "
+            f"device kernels and copies, busy {t['busy_ms']:.2f} of "
+            f"{t['profiled_ms']:.2f} ms (share {t['busy_share']:.3f}), "
+            f"{t['host_launches']} host launch calls; peak memory "
+            f"{t['peak_mib']:.1f} MiB")
 
 
 def graph_check(name: str, avatar, make_state, batches: list) -> dict:
@@ -2455,12 +2484,7 @@ def graph_check(name: str, avatar, make_state, batches: list) -> dict:
             kind = ("graph" if graph_mode else "eager") + (
                 "_update" if update else "_plain")
             res[kind] = t
-            print(f"[graph] {name} {kind}: {t['ms']:.2f} ms/step (median of "
-                  f"{GRAPH_TIMED}, warm); one profiled step: {t['kernels']} "
-                  f"device kernels and copies, busy {t['busy_ms']:.2f} of "
-                  f"{t['profiled_ms']:.2f} ms (share {t['busy_share']:.3f}), "
-                  f"{t['host_launches']} host launch calls; peak memory "
-                  f"{t['peak_mib']:.1f} MiB")
+            print(_timing_line(f"[graph] {name}", kind, t))
     res["captures"], res["capture_s"] = g.captures, g.capture_seconds
     print(f"[graph] {name}: {g.captures} graphs captured in all, "
           f"{g.capture_seconds:.2f} s of capture (warm-ups included; "
@@ -2508,9 +2532,10 @@ def graph_phase(dev, work: Path) -> dict:
 
 def _exact_frame(avatar, state, frame, grid, session) -> dict:
     """The frame eager at exact counts (``render_stream`` without budgets,
-    ``torch.nonzero`` selections), its grid built per pose when ``grid``
-    is None (``build_pose_grid``, as ``animate`` does)."""
-    g = grid if grid is not None else avatar.build_pose_grid(state, frame)
+    ``torch.nonzero`` selections), its grid built per pose, eagerly, when
+    ``grid`` is None (``build_pose_grid``, as ``animate`` does)."""
+    g = (grid if grid is not None
+         else avatar.build_pose_grid(state, frame, graph=False))
     return avatar.composite_frame(
         avatar.render_stream(state, frame, g, (H, W), session))
 
@@ -2547,9 +2572,11 @@ def frame_phase(dev, avatar, state, grid, turntable: list) -> dict:
     rays/s, peak memory, one profiled frame (device kernels, busy share,
     host launch calls); the graph frames against the eager ones (PSNR
     floor FRAME_MIN_DB), the head's launches on the replays, the graphs
-    captured, the learned budgets against the counts; then a frame at
-    priors too small for it (FRAME_TINY), which must re-render to the same
-    frame. Returns the graph run's head launches and rows."""
+    captured, the learned budgets against the counts; for the animate
+    sequence also PR 11's form (graph frames on eager grids) beside it.
+    Then a frame at priors too small for it (FRAME_TINY), which must
+    re-render to the same frame, and phase 18.3 (``grid_graph_check``) on
+    the animate poses. Returns the graph runs' head launches and rows."""
     from instantavatar_torch.train import RenderSession
     g = np.random.default_rng(17)
     poses = []
@@ -2591,6 +2618,31 @@ def frame_phase(dev, avatar, state, grid, turntable: list) -> dict:
                                                     fgrid, eager_sess))
         prof_g = _profile_step(lambda: avatar.render_frame(
             state, f0, grid=fgrid, image_shape=(H, W), session=graph_sess))
+        runs = [("eager exact", e_ms, e_peak, prof_e)]
+        if fgrid is None:
+            # PR 11's animate for comparison: graph frames, eager grids
+            mixed_sess = RenderSession()
+            build = avatar.build_pose_grid
+            avatar.build_pose_grid = lambda s, b, graph=None: build(
+                s, b, graph=False)
+            try:
+                mixed, m_ms, m_peak, _ = _timed_frames(lambda: list(
+                    avatar.render_frames(state, frames, image_shape=(H, W),
+                                         session=mixed_sess)), avatar)
+                prof_m = _profile_step(lambda: avatar.render_frame(
+                    state, f0, image_shape=(H, W), session=mixed_sess))
+            finally:
+                del avatar.build_pose_grid
+            mixed_db = min(psnr(a["rgb"], b["rgb"])
+                           for a, b in zip(mixed, graphed))
+            print(f"[frame] {name}: graph frames on graphed grids against "
+                  f"those on eager grids: PSNR min {mixed_db:.2f} dB "
+                  f"(bound {FRAME_MIN_DB})")
+            check(mixed_db >= FRAME_MIN_DB, f"{name}: the frames on graphed "
+                  f"grids differ from those on eager grids")
+            runs.append(("graph frame, eager grid", m_ms, m_peak, prof_m))
+        runs.append(("graph" if fgrid is not None else
+                     "graph frame, graph grid", g_ms, g_peak, prof_g))
         skey = (H * W, (H, W, avatar._block_size(H, W)))
         hits = [o["n_samples"] for o in graphed]
         occ = [o["n_occ"] for o in graphed]
@@ -2603,8 +2655,7 @@ def frame_phase(dev, avatar, state, grid, turntable: list) -> dict:
              "kept": (min(hits), max(hits)), "occupied": (min(occ), max(occ))}
         res[name] = r
         paths[f"frame_graph_{name}"] = (launches, rows)
-        for run, ms, peak, prof in (("eager exact", e_ms, e_peak, prof_e),
-                                    ("graph", g_ms, g_peak, prof_g)):
+        for run, ms, peak, prof in runs:
             print(f"[frame] {name} {run}: {ms:.2f} ms/frame warm, "
                   f"{H * W / ms * 1e3:.0f} rays/s, peak memory {peak:.1f} "
                   f"MiB; one profiled frame: {prof['kernels']} device "
@@ -2640,11 +2691,287 @@ def frame_phase(dev, avatar, state, grid, turntable: list) -> dict:
           f"the exact-count frame (bound {FRAME_MIN_DB})")
     check(len(passes) >= 2 and any(passes[1:]) and db >= FRAME_MIN_DB,
           "the forced overflow did not re-render to the same frame")
+    # -- 18.3: the animate poses' grids, eager and on graphs -------------
+    res["grid"] = grid_graph_check(avatar, state, poses)
+    res["paths"] = {**paths, **res["grid"].pop("paths")}
+    return res
+
+
+# -- phase 18: JAX's last eager programs on graphs ---------------------------
+
+def _dp_graph_rank(rank: int, world: int, work: str) -> None:
+    """Phase 18.1 rank: phase 7's configuration from ``dp_train_in.pt``'s
+    checkpoint on a world of one rank (NCCL on the card), the DP step
+    eagerly and then on graphs: steps 1 (grid update) and 2 (plain) from
+    the checkpoint under deterministic algorithms, and what each leaves;
+    then each mode timed per step kind (steps past 1000, default
+    algorithms). Writes those, the graphs captured, and the head's
+    launches and rows in the graph runs."""
+    import torch.distributed as dist
+    from instantavatar_torch.kernels import fused_field_head
+    from instantavatar_torch.parallel import (make_dp_train_step, make_mesh,
+                                              rank_draws)
+    from instantavatar_torch.train.harness import restore_checkpoint
+    work = Path(work)
+    inp = torch.load(work / "dp_train_in.pt", weights_only=False)
+    dev = _rank_device(inp["device"])
+    avatar = make_trainer(dev, **inp["trainer_kw"])
+    mesh = make_mesh(n_ray=world)
+    batches = inp["batches"]
+    n = int(np.prod(batches[0]["rays_o"].shape[:-1])) // world
+    steps: dict = {}
+
+    def dp(graph: bool, update: bool):
+        if (graph, update) not in steps:
+            steps[graph, update] = make_dp_train_step(avatar, mesh, update,
+                                                      graph=graph)
+        return steps[graph, update]
+
+    out = {"backend": str(dist.get_backend(mesh.group))}
+    head = [0, 0]
+
+    def counted(fn):
+        l0, r0 = fused_field_head.launches, fused_field_head.rows
+        res = fn()
+        head[0] += fused_field_head.launches - l0
+        head[1] += fused_field_head.rows - r0
+        return res
+
+    def exact_run(graph: bool) -> list:
+        state = restore_checkpoint(inp["ckpt"], avatar.init(inp["betas"]),
+                                   avatar.field)
+        left = []
+        for i in range(2):
+            update = avatar.is_update(state.step)
+            draws = rank_draws(avatar, mesh, DP_SEED + i, n, update)
+            state, losses = dp(graph, update)(state, batches[i], draws)
+            left.append([t.cpu() for t in _step_tensors(avatar, state,
+                                                        losses)])
+        return left, state
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        out["eager"], _ = exact_run(False)
+        out["graph"], state = counted(lambda: exact_run(True))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for graph in (False, True):
+        for update in (True, False):
+            def step(st, b, gen, graph=graph, update=update):
+                return dp(graph, update)(st, b, avatar.draw(gen, n, update))
+            kind = ("graph" if graph else "eager") + (
+                "_update" if update else "_plain")
+            out[kind] = (counted if graph else lambda f: f())(
+                lambda: _timed_steps(avatar, state, batches[2], graph,
+                                     update, step))
+    g = avatar.step_graphs
+    out["captures"], out["capture_s"] = g.captures, g.capture_seconds
+    out["launches"], out["rows"] = head
+    torch.save(out, work / f"dp_graph_{rank}.pt")
+
+
+def dp_graph_check(dev, work: Path) -> dict:
+    """Phase 18.1: the DP step on one NCCL rank (the ``all_reduce`` real
+    and, on graphs, inside the graph; NCCL puts no two ranks on one
+    card), phase 15's inputs: the eager step against the single-process
+    step and the graph steps against the eager ones, bit for bit at a
+    grid update and a plain step (deterministic algorithms); then each
+    mode timed per step kind. Returns the graph runs' head launches and
+    rows, and the numbers."""
+    from instantavatar_torch.parallel import run_ranks
+    inp = torch.load(work / "dp_train_in.pt", weights_only=False)
+    secs = run_ranks(_dp_graph_rank, 1, backend="nccl" if dev.type == "cuda"
+                     else "gloo", store_dir=work, args=(str(work),),
+                     timeout=SPAWN_TIMEOUT, threads=torch.get_num_threads())
+    (r,) = _load_ranks(work, "dp_graph", 1)
+    ref, rstate, rl = _single_step(dev, inp, 1, True)
+    one = _gap(r["eager"][0], [t.cpu() for t in _step_tensors(ref, rstate,
+                                                               rl)])
+    gaps = [_gap(a, b) for a, b in zip(r["eager"], r["graph"], strict=True)]
+    print(f"[dp graph] one {r['backend']} rank, phase 7's configuration: "
+          f"the eager DP step 1 against the single-process step max|diff| "
+          f"{one:.3e}; steps 1 (grid update) and 2 (plain) on graphs (the "
+          f"all_reduce inside) against eager, max|diff| of parameters, "
+          f"Adam moments, counts, grid and losses {gaps} (deterministic "
+          f"algorithms in all); the rank ran {secs:.1f} s with start-up")
+    check(one == 0.0, "the one-rank DP step differs from the "
+          "single-process step")
+    check(all(g == 0.0 for g in gaps), "the graphed DP step differs from "
+          "the eager one")
+    res = {"gaps": gaps}
+    for kind in ("eager_update", "eager_plain", "graph_update",
+                 "graph_plain"):
+        res[kind] = r[kind]
+        print(_timing_line("[dp graph]", kind, r[kind]))
+    res.update(captures=r["captures"], capture_s=r["capture_s"])
+    print(f"[dp graph] {r['captures']} graphs captured, "
+          f"{r['capture_s']:.2f} s of capture (warm-ups included); "
+          f"fused-head launches in the graph runs {r['launches']}")
+    check(dev.type != "cuda" or r["launches"] > 0,
+          "the graphed DP step never launched the CUDA head")
+    res["paths"] = {"dp_graph_nccl": (r["launches"], r["rows"])}
+    return res
+
+
+def multi_graph_check(dev) -> dict:
+    """Phase 18.2: ``train_multi``'s combined step (``make_multi_subject
+    _step``) on two subjects of phase 7's configuration in one process,
+    MULTI_GRAPH_STEPS combined steps (the first a grid update) eagerly
+    and then on graphs (each subject's step one replay of its model's
+    graph, the two queued back to back), from one pair of states and
+    seeds, bit-equal under deterministic algorithms; then the warm
+    combined plain step per mode. Returns the graph runs' head launches
+    and rows, and the numbers."""
+    from instantavatar_torch.kernels import fused_field_head
+    from instantavatar_torch.parallel import (make_mesh,
+                                              make_multi_subject_step,
+                                              stack_subjects)
+    from instantavatar_torch.train.harness import _to_device
+    seq, train, _ = capsule_splits(dev, TRAIN_SIZE, TRAIN_FRAMES, VAL_FRAMES)
+    betas = seq["smpl_params"]["betas"]
+    S = len(MULTI_SUBJECTS)
+    avatars = [make_trainer(dev, steps_per_epoch=TRAIN_FRAMES)
+               for _ in range(S)]
+    mesh = make_mesh(n_ray=1, n_subject=S)
+    batches = [[_to_device(train[(i + 7 * k) % TRAIN_FRAMES], dev)
+                for k in range(S)] for i in range(MULTI_GRAPH_STEPS)]
+    n = int(np.prod(batches[0][0]["rays_o"].shape[:-1]))
+    head = [0, 0]
+
+    def run(graph: bool):
+        subjects = stack_subjects([(av, av.init(
+            betas, generator=torch.Generator(device=dev).manual_seed(k)))
+            for k, av in enumerate(avatars)])
+        gens = [torch.Generator(device=dev).manual_seed(GRAPH_SEED + k)
+                for k in range(S)]
+        steps = {u: make_multi_subject_step(mesh, u, graph=graph)
+                 for u in (False, True)}
+        l0, r0 = fused_field_head.launches, fused_field_head.rows
+        for b in batches:
+            update = avatars[0].is_update(subjects[0][1].step)
+            subjects, losses = steps[update](
+                subjects, b, [av.draw(g, n, update)
+                              for av, g in zip(avatars, gens)])
+        torch.cuda.synchronize()
+        if graph:
+            head[0] += fused_field_head.launches - l0
+            head[1] += fused_field_head.rows - r0
+        return subjects, [t.cpu() for (av, st), l in zip(subjects, losses)
+                          for t in _step_tensors(av, st, l)]
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        _, eager = run(False)
+        subjects, graph = run(True)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    gap = _gap(eager, graph)
+    print(f"[multi graph] {S} subjects of phase 7's configuration in one "
+          f"process: {MULTI_GRAPH_STEPS} combined steps (the first a grid "
+          f"update) eager against graphs, each subject one replay per "
+          f"step: max|diff| of both subjects' parameters, Adam moments, "
+          f"counts, grids and losses {gap:.3e} (deterministic "
+          f"algorithms)")
+    check(gap == 0.0, "the graphed combined step differs from the eager "
+          "one")
+    res = {"gap": gap}
+    gen = torch.Generator(device=dev).manual_seed(GRAPH_SEED)
+    draws = [av.draw(gen, n, False) for av in avatars]
+    for graph in (False, True):
+        step = make_multi_subject_step(mesh, False, graph=graph)
+
+        def combined():
+            # step 1001: plain, no warm-up, latch or noise
+            return step([(av, st._replace(step=1001))
+                         for av, st in subjects], batches[1], draws)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        l0, r0 = fused_field_head.launches, fused_field_head.rows
+        times = []
+        for _ in range(GRAPH_TIMED + 1):
+            t0 = time.perf_counter()
+            combined()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        t = {"ms": statistics.median(times[1:]),
+             "peak_mib": torch.cuda.max_memory_allocated() / 2 ** 20,
+             **_profile_step(combined)}
+        if graph:
+            head[0] += fused_field_head.launches - l0
+            head[1] += fused_field_head.rows - r0
+        kind = "graph" if graph else "eager"
+        res[kind] = t
+        print(_timing_line("[multi graph]", kind, t, "combined step"))
+    res["captures"] = sum(av.step_graphs.captures for av in avatars)
+    res["capture_s"] = sum(av.step_graphs.capture_seconds for av in avatars)
+    print(f"[multi graph] {res['captures']} graphs captured over the "
+          f"{S} models, {res['capture_s']:.2f} s of capture (warm-ups "
+          f"included); fused-head launches in the graph runs {head[0]}")
+    check(head[0] > 0, "the graphed combined step never launched the head")
+    res["paths"] = {"multi_graph": tuple(head)}
+    return res
+
+
+def grid_graph_check(avatar, state, poses: list) -> dict:
+    """Phase 18.3: the per-pose grids of phase 17's animate poses
+    (``build_pose_grid``, and ``build_test_grid`` on two of them) eagerly
+    and on graphs: equal exactly (occupancy, density and box;
+    deterministic algorithms, under which these graphs are captured),
+    then warm ms per grid per mode (default algorithms, the graphs
+    captured anew) and one profiled build. Returns the graphed test
+    grids' head launches and rows."""
+    from instantavatar_torch.kernels import fused_field_head
+    res, paths = {}, {}
+    for kind, build, sel in (("pose", avatar.build_pose_grid, poses),
+                             ("test", avatar.build_test_grid, poses[:2])):
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            eager = [build(state, f, graph=False) for f in sel]
+            l0, r0 = fused_field_head.launches, fused_field_head.rows
+            graphed = [build(state, f, graph=True) for f in sel]
+            torch.cuda.synchronize()
+            head = (fused_field_head.launches - l0,
+                    fused_field_head.rows - r0)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        same = all(torch.equal(a, b) for e, g in zip(eager, graphed)
+                   for a, b in zip(e, g))
+        occ = [int(g.occupancy.sum()) for g in graphed]
+        print(f"[grid graph] {kind} grid, {len(sel)} poses: graph equals "
+              f"eager exactly (occupancy, density, box): {same}; occupied "
+              f"cells {occ}")
+        check(same, f"the graphed {kind} grid differs from the eager one")
+        # the timed graphs anew, captured in the default mode
+        avatar.grid_graphs.graphs.clear()
+        for graph in (False, True):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            times = []
+            for f in sel + sel[:1]:
+                t0 = time.perf_counter()
+                build(state, f, graph=graph)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            t = {"ms": statistics.median(times[1:]),
+                 "peak_mib": torch.cuda.max_memory_allocated() / 2 ** 20,
+                 **_profile_step(lambda: build(state, sel[-1],
+                                               graph=graph))}
+            mode = "graph" if graph else "eager"
+            res[f"{kind}_{mode}"] = t
+            print(_timing_line("[grid graph]", f"{kind} {mode}", t, "grid",
+                               len(sel)))
+        if kind == "test":
+            check(head[0] > 0, "the graphed test grid never launched the "
+                  "head")
+            paths["grid_graph_test"] = head
+    gg = avatar.grid_graphs
+    print(f"[grid graph] {gg.captures} grid graphs captured, "
+          f"{gg.capture_seconds:.2f} s of capture (warm-ups included), "
+          f"{gg.replays} replays")
     res["paths"] = paths
     return res
 
 
 def main(profile_dir: Path | None) -> int:
+    t_start = time.perf_counter()
     # -- 1. device --------------------------------------------------------
     # cuBLAS's deterministic workspace (phases 15 and 16 compare runs under
     # deterministic algorithms); read when cuBLAS starts
@@ -2826,9 +3153,12 @@ def main(profile_dir: Path | None) -> int:
                **multi_phase(dev, Path(work), cli)["paths"]}
         # -- 16. the captured step against the eager one ---------------
         par.update(graph_phase(dev, Path(work))["paths"])
+        # -- 18.1, 18.2: the DP and multi-subject steps on graphs -------
+        par.update(dp_graph_check(dev, Path(work))["paths"])
+        par.update(multi_graph_check(dev)["paths"])
     # -- 14. the eval modes on phase 4's avatar --------------------------------
     modes = modes_phase(dev, avatar, state, grid)
-    # -- 17. the flat frame on graphs against the eager exact one -------------
+    # -- 17 (and 18.3). the flat frame and the per-pose grids on graphs -------
     par.update(frame_phase(dev, avatar, state, grid, frames)["paths"])
 
     # -- 10. the kernel at each path's rows per launch ------------------------
@@ -2844,6 +3174,8 @@ def main(profile_dir: Path | None) -> int:
     rows_per_launch = {k: rows_by_path[k] / n for k, n in by_path.items()
                        if n}
     ms_by_path, path_err = path_timings(dev, rows_per_launch)
+    print(f"[smoke] all phases ran in {time.perf_counter() - t_start:.1f} s "
+          f"(the kernel's build included)")
 
     print(json.dumps({"kernels": [{
         "name": "fused_field_head", "route": "cuda",

@@ -19,6 +19,10 @@ NCCL on CUDA, gloo on the CPU) the subjects split over the ranks in
 contiguous blocks, one ray shard each, as JAX's
 ``make_mesh(n_ray=1, n_subject=min(S, devices))``; a launch with more
 ranks than subjects stops with a message. No collective crosses subjects.
+On CUDA each combined step is one replay of each subject's captured step
+graph, queued back to back (``make_multi_subject_step``), its batches
+copied to the card from pinned memory without a host sync; the CPU runs
+the steps eagerly.
 """
 from __future__ import annotations
 

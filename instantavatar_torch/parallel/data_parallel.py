@@ -13,11 +13,15 @@ process with its own device), and the collectives are explicit:
     every gradient (field, and the SMPL leaves with ``optimize_smpl``), the
     loss components and, with a grid update, the density sweep and the
     occupancy vote (JAX's single ``pmean`` over the tree). The replicated
-    Adam then keeps the parameters bit-identical on every rank.
+    Adam then keeps the parameters bit-identical on every rank. On CUDA
+    models with an NCCL group (or none) the step is one replay of a
+    captured CUDA graph, the ``all_reduce`` inside it; a gloo group runs
+    eagerly.
   * **Subject parallelism** (``stack_subjects``,
     ``make_multi_subject_step``): independent avatars, one (AvatarModel,
     TrainState) pair each, with no collective across subjects; a rank
-    that holds several subjects steps them in turn.
+    that holds several subjects steps them in turn (on graphs: one replay
+    per subject, queued back to back).
   * **Sharded inference**: ``make_dp_render`` (the eval render of ray
     batches) and ``DPFrameRenderer`` (the flat frame render, one band of
     the image per rank through ``render_stream`` and the fused head), the
@@ -34,6 +38,7 @@ packing have no counterpart.
 """
 from __future__ import annotations
 
+import functools
 import warnings
 from dataclasses import dataclass
 from typing import Any, NamedTuple
@@ -151,9 +156,11 @@ def rank_draws(avatar: AvatarModel, mesh: Mesh, seed: int, n_rays: int,
 def _mean_over_rays(mesh: Mesh, params: list[torch.Tensor], losses: dict,
                     grid, with_grid_update: bool):
     """One all_reduce over the ray group of one flat fp32 bucket, divided
-    by the ray count: the gradients (written back into ``.grad``), the
-    losses and, with a grid update, ``density_cached`` and the occupancy
-    vote (mean > 0.5). Returns (losses, grid)."""
+    by the ray count: the gradients, the losses and, with a grid update,
+    ``density_cached`` and the occupancy vote (mean > 0.5). The averages
+    are written in place: into each parameter's ``.grad`` (made where it
+    has none) and into ``grid``'s own tensors, so that a captured step
+    finds them at the addresses it read. Returns (losses, grid)."""
     grads = [p.grad if p.grad is not None else torch.zeros_like(p)
              for p in params]
     keys = sorted(losses)
@@ -166,18 +173,76 @@ def _mean_over_rays(mesh: Mesh, params: list[torch.Tensor], losses: dict,
     dist.all_reduce(bucket, group=mesh.group)
     bucket /= mesh.n_ray
     pieces = iter(bucket.split([x.numel() for x in parts]))
-    for p in params:
-        p.grad = next(pieces).view_as(p).to(p.dtype)
-    losses = dict(zip(keys, next(pieces).unbind()))
-    if with_grid_update:
-        grid = grid._replace(
-            density_cached=next(pieces).view_as(grid.density_cached),
-            occupancy=next(pieces).view_as(grid.density_cached) > 0.5)
+    with torch.no_grad():
+        for p in params:
+            mean = next(pieces).view_as(p)
+            if p.grad is None:
+                p.grad = mean.to(p.dtype)
+            else:
+                p.grad.copy_(mean)
+        losses = dict(zip(keys, next(pieces).unbind()))
+        if with_grid_update:
+            grid.density_cached.copy_(
+                next(pieces).view_as(grid.density_cached))
+            grid.occupancy.copy_(
+                next(pieces).view_as(grid.density_cached) > 0.5)
     return losses, grid
 
 
+def _capturable(mesh: Mesh, graph: bool | None) -> bool:
+    """Whether the mesh's ray group can sit inside a CUDA graph: none or
+    NCCL. A gloo group runs its collectives through the host, so its
+    steps run eagerly, and ``graph=True`` raises there."""
+    ok = (mesh.group is None
+          or "nccl" in str(dist.get_backend(mesh.group)))
+    if graph and not ok:
+        raise ValueError("a gloo ray group cannot be captured in a CUDA "
+                         "graph: its DP steps run eagerly (graph=None or "
+                         "False)")
+    return ok
+
+
+def _graphed(avatar: AvatarModel, mesh: Mesh, graph: bool | None) -> bool:
+    """Whether ``avatar``'s DP step replays a captured CUDA graph: by
+    default on a CUDA model whose ray group can be captured; never on the
+    CPU, where ``graph=True`` raises."""
+    ok = _capturable(mesh, graph)
+    if graph is None:
+        return avatar.device.type == "cuda" and ok
+    return avatar._graphed(graph)
+
+
+def _ray_reduce(mesh: Mesh):
+    """The DP step's hook between autograd and the optimizer
+    (``step_graph.step_body``): (the ray group, ``_mean_over_rays`` on
+    it); None in a world of 1."""
+    if mesh.group is None:
+        return None
+    return mesh.group, functools.partial(_mean_over_rays, mesh)
+
+
+def _dp_step(avatar: AvatarModel, mesh: Mesh, with_grid_update: bool,
+             graph: bool, state: TrainState, batch, draws: StepDraws):
+    """One DP step of ``make_dp_train_step``, on graphs or eagerly."""
+    local = shard_batch(batch, mesh)
+    reduce = _ray_reduce(mesh)
+    if graph:
+        if (draws.grid_jitter is not None) != with_grid_update:
+            raise ValueError("the draws' grid jitter does not match "
+                             f"with_grid_update={with_grid_update}")
+        return avatar._captured_steps().run(
+            state, local, draws, update=with_grid_update, reduce=reduce)
+    losses, grid = avatar.grads_and_losses(state, local, draws,
+                                           with_grid_update)
+    if reduce is not None:
+        losses, grid = reduce[1](state.opt_state.params, losses, grid,
+                                 with_grid_update)
+    return avatar.apply_grads(state, grid), losses
+
+
 def make_dp_train_step(avatar: AvatarModel, mesh: Mesh,
-                       with_grid_update: bool = False):
+                       with_grid_update: bool = False, *,
+                       graph: bool | None = None):
     """Ray-data-parallel training step over the mesh's ray axis:
     ``step(state, batch, draws) -> (state, losses)`` with ``batch`` the
     step's whole ray batch (this rank renders ``shard_batch(batch,
@@ -186,19 +251,23 @@ def make_dp_train_step(avatar: AvatarModel, mesh: Mesh,
     ``all_reduce`` (with a group of one rank too: the identity), then the
     replicated optimizer applies them; in a world of 1 the step is the
     single-device step. After it, each parameter's ``.grad`` holds the
-    averaged gradient."""
+    averaged gradient.
+
+    On a CUDA model whose ray group is None or NCCL the step is one replay
+    of a captured CUDA graph of the whole step, the ``all_reduce``
+    included (JAX's jitted ``shard_map`` program; ``train/step_graph.py``),
+    with no host sync inside; the grid is written into ``state.grid``'s
+    tensors, as the optimizer writes the parameters, and a failed capture
+    raises. A gloo group cannot be captured: its steps run eagerly, as on
+    the CPU and with ``graph=False``; ``graph=True`` raises there."""
     if mesh.n_ray > 1 and mesh.group is None:
         raise ValueError("a step over several ray shards needs a process "
                          "group (torch.distributed) of their ranks")
+    graph = _graphed(avatar, mesh, graph)
 
     def step(state: TrainState, batch, draws: StepDraws):
-        losses, new_grid = avatar.grads_and_losses(
-            state, shard_batch(batch, mesh), draws, with_grid_update)
-        if mesh.group is not None:
-            losses, new_grid = _mean_over_rays(
-                mesh, state.opt_state.params, losses, new_grid,
-                with_grid_update)
-        return avatar.apply_grads(state, new_grid), losses
+        return _dp_step(avatar, mesh, with_grid_update, graph, state, batch,
+                        draws)
 
     return step
 
@@ -362,7 +431,7 @@ class DPFrameRenderer:
         with torch.no_grad():
             rbatch = av._resolve_batch(state, batch)
         if grid is None:
-            grid = av._frame_grid(state, batch, session, key, refs)
+            grid = av._frame_grid(state, batch, session, key, refs, graph)
         frame = self._shape_frame(rbatch, image_shape)
         p = av._block_size(*frame.band_shape)
         skey = (frame.n_loc, (*frame.band_shape, p))
@@ -564,21 +633,34 @@ def stack_subjects(subjects) -> list[tuple[AvatarModel, TrainState]]:
     return [(avatar, state) for avatar, state in subjects]
 
 
-def make_multi_subject_step(mesh: Mesh, with_grid_update: bool = False):
+def make_multi_subject_step(mesh: Mesh, with_grid_update: bool = False,
+                            *, graph: bool | None = None):
     """Combined (subject x ray) training step: ``step(subjects, batches,
     draws) -> (subjects, losses)`` over this rank's subjects (a list of
     (AvatarModel, TrainState) pairs, ``Mesh.local_subjects``), each
-    subject's whole ray batch and this rank's draws for it, stepped in
-    turn by ``make_dp_train_step`` over the subject's ray group; no
-    collective crosses subjects. With one ray shard each subject's step
-    is the single-device step, its draws those of ``rank_draws`` (JAX's
-    single-chip key semantics)."""
+    subject's whole ray batch and this rank's draws for it, each subject
+    stepped as ``make_dp_train_step`` steps it over the subject's ray
+    group; no collective crosses subjects. With one ray shard each
+    subject's step is the single-device step, its draws those of
+    ``rank_draws`` (JAX's single-chip key semantics).
+
+    JAX vmaps every subject's step into one program. Here, on CUDA
+    models whose ray group is None or NCCL, each subject's step is one
+    replay of its own model's captured graph: the S replays are queued
+    back to back in one stream with no host read between them, so the
+    combined step synchronises once, when its losses are read. A gloo
+    group, the CPU and ``graph=False`` step the subjects eagerly in turn;
+    ``graph=True`` raises on a gloo group (here) and on a CPU model (at
+    its first step)."""
+    _capturable(mesh, graph)   # graph=True on a gloo group raises
+
     def step(subjects, batches, draws):
         out, losses = [], []
         for (avatar, state), batch, d in zip(subjects, batches, draws,
                                              strict=True):
-            state, l = make_dp_train_step(avatar, mesh, with_grid_update)(
-                state, batch, d)
+            state, l = _dp_step(avatar, mesh, with_grid_update,
+                                _graphed(avatar, mesh, graph), state, batch,
+                                d)
             out.append((avatar, state))
             losses.append(l)
         return out, losses

@@ -87,7 +87,9 @@ overflow it re-renders with larger ones (at most 4 passes, then a
 ``RuntimeWarning``). ``render_frames`` keeps two frames in flight. On a
 CUDA model the flat frame is one replay of a captured CUDA graph
 (``frame_graph.FrameGraphs``, per image shape, budgets and bake or
-reuse); on the CPU, and in the ray-bundle modes, it runs eagerly.
+reuse), and so is each per-pose grid build (``grid_graph.GridGraphs``,
+per grid kind); on the CPU, and in the ray-bundle modes, the frame runs
+eagerly.
 ``render_stream`` and ``render_rays_frame`` called without budgets
 select at the exact counts (``torch.nonzero``), which the budgeted frame
 equals when nothing overflows. JAX's compiler size-hopping, packed
@@ -336,10 +338,12 @@ class AvatarModel:
                              "(losses.lpips.load_lpips)")
         self.optimizer = optimizer or make_optimizer(
             1e-2, betas=(0.9, 0.999), eps=1e-8, skip_nonfinite=0)
-        # the captured training steps (``step_graph.StepGraphs``) and
-        # frames (``frame_graph.FrameGraphs``), made at first use
+        # the captured training steps (``step_graph.StepGraphs``), frames
+        # (``frame_graph.FrameGraphs``) and per-pose grids
+        # (``grid_graph.GridGraphs``), made at first use
         self.step_graphs = None
         self.frame_graphs = None
+        self.grid_graphs = None
         # the warp-cache tables of frames rendered without a session, kept
         # so that a captured frame finds them at one address
         self._call_tables = None
@@ -698,12 +702,14 @@ class AvatarModel:
         every ``grid_update_interval`` steps)."""
         return step % self.grid_update_interval == 0
 
-    def graph_key(self, step: int) -> tuple[bool, bool, bool]:
+    def graph_key(self, step: int, update: bool | None = None
+                  ) -> tuple[bool, bool, bool]:
         """The branches of step ``step`` that JAX takes on the device and
         the captured step fixes per graph: (grid update, the 500-step
         latch and the regularizer's warm-up on an update step, sigma
-        noise on)."""
-        update = self.is_update(step)
+        noise on). The grid update follows the cadence unless ``update``
+        says (the DP step's ``with_grid_update``)."""
+        update = self.is_update(step) if update is None else update
         return (update, update and step < 500,
                 self.noise_steps > 0 and step < self.noise_steps)
 
@@ -724,16 +730,20 @@ class AvatarModel:
             raise ValueError("a captured step or frame needs a CUDA model")
         return graph
 
+    def _captured_steps(self):
+        """The model's ``step_graph.StepGraphs``, made at first use."""
+        if self.step_graphs is None:
+            from .step_graph import StepGraphs
+            self.step_graphs = StepGraphs(self)
+        return self.step_graphs
+
     def _run_step(self, state: TrainState, batch, draws: StepDraws,
                   graph: bool) -> tuple[TrainState, dict]:
         if (draws.grid_jitter is not None) != self.is_update(state.step):
             raise ValueError(f"step {state.step}: the draws' grid jitter "
                              f"does not match the grid-update cadence")
         if graph:
-            if self.step_graphs is None:
-                from .step_graph import StepGraphs
-                self.step_graphs = StepGraphs(self)
-            return self.step_graphs.run(state, batch, draws)
+            return self._captured_steps().run(state, batch, draws)
         if draws.grid_jitter is not None:
             return self.train_step_update(state, batch, draws)
         return self.train_step(state, batch, draws)
@@ -770,11 +780,42 @@ class AvatarModel:
                 state, {k: v[i] for k, v in batches.items()}, d, graph)
         return state, losses
 
-    @torch.no_grad()
-    def build_pose_grid(self, state: TrainState, batch) -> DensityGridState:
+    def build_pose_grid(self, state: TrainState, batch, *,
+                        graph: bool | None = None) -> DensityGridState:
         """Per-pose grid from the posed body shell: cells within
         max(shell_margin, half a cell diagonal) of a posed vertex, over the
-        forward-warped voxel's AABB."""
+        forward-warped voxel's AABB. On a CUDA model one replay of a
+        captured CUDA graph (``grid_graph.GridGraphs``; a failed capture
+        raises), as JAX jits it; on the CPU, or with ``graph=False``,
+        eager. The returned tensors are the caller's own."""
+        if self._graphed(graph):
+            return self._captured_grids().run("smpl_shell", state, batch)
+        return self._pose_grid(state, batch)
+
+    def build_test_grid(self, state: TrainState, batch,
+                        jitter: torch.Tensor | None = None, *,
+                        graph: bool | None = None) -> DensityGridState:
+        """Per-frame test grid (``eval_grid="density"``): the deformed
+        body's AABB and the max density over 5 jittered full-search passes,
+        the head being the fused one. ``jitter`` (5, G, G, G, 3) uniform
+        draws; by default a generator seeded 0 on the model's device (JAX
+        uses ``PRNGKey(0)``: same role, other numbers). On a CUDA model one
+        replay of a captured CUDA graph, as ``build_pose_grid``."""
+        if self._graphed(graph):
+            return self._captured_grids().run("density", state, batch,
+                                              jitter)
+        return self._test_grid(state, batch, jitter)
+
+    def _default_jitter(self) -> torch.Tensor:
+        """``build_test_grid``'s default draws: (5, G, G, G, 3) uniform
+        from a generator seeded 0 on the model's device."""
+        g = torch.Generator(device=self.device).manual_seed(0)
+        return torch.rand((5,) + (self.grid_size,) * 3 + (3,), generator=g,
+                          device=self.device)
+
+    @torch.no_grad()
+    def _pose_grid(self, state: TrainState, batch) -> DensityGridState:
+        """``build_pose_grid``'s device program (eager)."""
         dstate = self._prepare(state.deformer_cano,
                                self._resolve_batch(state, batch))
         return self._shell_grid(dstate.verts_smpl,
@@ -782,23 +823,23 @@ class AvatarModel:
                                 self.shell_margin)
 
     @torch.no_grad()
-    def build_test_grid(self, state: TrainState, batch,
-                        jitter: torch.Tensor | None = None
-                        ) -> DensityGridState:
-        """Per-frame test grid (``eval_grid="density"``): the deformed
-        body's AABB and the max density over 5 jittered full-search passes,
-        the head being the fused one. ``jitter`` (5, G, G, G, 3) uniform
-        draws; by default a generator seeded 0 on the model's device (JAX
-        uses ``PRNGKey(0)``: same role, other numbers)."""
+    def _test_grid(self, state: TrainState, batch,
+                   jitter: torch.Tensor | None = None) -> DensityGridState:
+        """``build_test_grid``'s device program (eager)."""
         dstate = self._prepare(state.deformer_cano,
                                self._resolve_batch(state, batch))
         if jitter is None:
-            g = torch.Generator(device=self.device).manual_seed(0)
-            jitter = torch.rand((5,) + (self.grid_size,) * 3 + (3,),
-                                generator=g, device=self.device)
+            jitter = self._default_jitter()
         return initialize_grid(self.deformer.bbox_deformed(dstate),
                                self._density_fn(state, dstate, True), jitter,
                                self.grid_size)
+
+    def _captured_grids(self):
+        """The model's ``grid_graph.GridGraphs``, made at first use."""
+        if self.grid_graphs is None:
+            from .grid_graph import GridGraphs
+            self.grid_graphs = GridGraphs(self)
+        return self.grid_graphs
 
     # -- frame render -------------------------------------------------------
 
@@ -1321,11 +1362,15 @@ class AvatarModel:
 
     def _frame_grid(self, state: TrainState, batch,
                     session: RenderSession | None, key=None,
-                    refs: tuple = ()) -> DensityGridState:
+                    refs: tuple = (), graph: bool | None = None
+                    ) -> DensityGridState:
         """The frame's own grid (``render_frame(grid=None)``):
         ``build_test_grid`` (``eval_grid="density"``) or
         ``build_pose_grid`` (``"smpl_shell"``), reused from the session
-        when field params, betas, body pose and the grid kind match."""
+        when field params, betas, body pose and the grid kind match. On a
+        CUDA model each build is one graph replay (``graph`` as the
+        frame's), its grid the caller's own, so that the next pose's
+        replay cannot overwrite a grid a queued frame reads."""
         if self.eval_grid not in ("density", "smpl_shell"):
             raise ValueError(f"unknown eval_grid {self.eval_grid!r}")
         if key is None:
@@ -1334,9 +1379,11 @@ class AvatarModel:
         if session is not None and session.last_grid is not None \
                 and session.last_grid[0] == key:
             return session.last_grid[1]
-        grid = (self.build_test_grid(state, batch)
-                if self.eval_grid == "density"
-                else self.build_pose_grid(state, batch))
+        build = (self.build_test_grid if self.eval_grid == "density"
+                 else self.build_pose_grid)
+        # graph None: the builder's own default
+        grid = (build(state, batch) if graph is None
+                else build(state, batch, graph=graph))
         if session is not None:
             session.last_grid = (key, grid, refs)
         return grid
@@ -1394,7 +1441,7 @@ class AvatarModel:
         with torch.no_grad():
             rbatch = self._resolve_batch(state, batch)
         if grid is None:
-            grid = self._frame_grid(state, batch, session, key, refs)
+            grid = self._frame_grid(state, batch, session, key, refs, graph)
         G3 = self.grid_size ** 3
         if flat:
             H, W = image_shape

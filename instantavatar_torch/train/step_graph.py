@@ -27,8 +27,9 @@ A replay reads and writes fixed addresses, so ``StepGraphs`` keeps:
     each replay (before the next can overwrite them).
 
 Before each capture the step runs once eagerly on the capture stream
-(cuBLAS, cuDNN and the head's library initialise there), without the
-optimizer and without writing the grid, so the state does not advance.
+(cuBLAS, cuDNN, NCCL and the head's library initialise there), without
+the optimizer and without writing the grid, so the state does not
+advance.
 The fused head's counters count at capture, when nothing runs: the
 launches and rows captured into each graph are added on each replay.
 """
@@ -43,7 +44,7 @@ import torch
 from ..kernels.fused_head import fused_field_head
 from .model import StepDraws, TrainState
 
-__all__ = ["StepGraphs"]
+__all__ = ["StepGraphs", "step_body"]
 
 
 @dataclass
@@ -72,6 +73,20 @@ def _state_tensors(state: TrainState, model) -> list[torch.Tensor]:
 
 def _layout(t: torch.Tensor) -> tuple:
     return (t.data_ptr(), tuple(t.shape), t.dtype)
+
+
+def step_body(model, state: TrainState, batch: dict, draws: StepDraws,
+              update: bool, reduce=None) -> dict:
+    """The captured step: ``grads_and_losses(in_place=True)``, the ray
+    group's ``reduce`` hook (``(group, fn)``, ``fn(params, losses, grid,
+    update) -> (losses, grid)``, writing the averages in place) when
+    given, then the optimizer. Returns the losses."""
+    losses, grid = model.grads_and_losses(state, batch, draws, update,
+                                          in_place=True)
+    if reduce is not None:
+        losses, _ = reduce[1](state.opt_state.params, losses, grid, update)
+    state.opt_state.step()
+    return losses
 
 
 class StepGraphs:
@@ -136,21 +151,34 @@ class StepGraphs:
         return StepDraws(d["jitter"], d["noise"],
                          d["grid_jitter"] if update else None)
 
-    def _capture(self, state: TrainState, key: tuple) -> _Graph:
-        model, update = self.model, key[0]
+    def key(self, state: TrainState, update: bool | None = None,
+            reduce=None) -> tuple:
+        """The graph of a step: its ``graph_key`` (the grid update taken
+        from ``update`` when given, else from the cadence) and its ray
+        group (None without a reduce)."""
+        return (self.model.graph_key(state.step, update),
+                None if reduce is None else reduce[0])
+
+    def _capture(self, state: TrainState, key: tuple, reduce=None
+                 ) -> _Graph:
+        model, update = self.model, key[0][0]
         draws = self._static_draws(update)
         t0 = time.perf_counter()
         self.stream.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(self.stream):
-            # warm-up: the step's kernels once, the state left as it is
-            model.grads_and_losses(state, self.batch, draws, update)
+            # warm-up: the step's kernels once (and the ray group's
+            # all_reduce, whose first call makes the NCCL communicator),
+            # the state left as it is: the grid is not reduced
+            losses, grid = model.grads_and_losses(state, self.batch, draws,
+                                                  update)
+            if reduce is not None:
+                reduce[1](state.opt_state.params, losses, grid, False)
         torch.cuda.current_stream(self.device).wait_stream(self.stream)
         launches, rows = fused_field_head.launches, fused_field_head.rows
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
-            losses, _ = model.grads_and_losses(state, self.batch, draws,
-                                               update, in_place=True)
-            state.opt_state.step()
+            losses = step_body(model, state, self.batch, draws, update,
+                               reduce)
             names = tuple(losses)
             stacked = torch.stack([losses[k].float() for k in names])
         captured = _Graph(graph, stacked, names,
@@ -163,13 +191,16 @@ class StepGraphs:
         self.capture_seconds += time.perf_counter() - t0
         return captured
 
-    def run(self, state: TrainState, batch: dict, draws: StepDraws
+    def run(self, state: TrainState, batch: dict, draws: StepDraws, *,
+            update: bool | None = None, reduce=None
             ) -> tuple[TrainState, dict]:
         """One training step as one graph replay; returns (the state one
-        step on, the step's losses)."""
+        step on, the step's losses). ``update`` (default: the cadence)
+        says whether the step updates the grid; ``reduce`` is the ray
+        group's hook (see ``step_body``)."""
         self._stage(state, batch, draws)
-        key = self.model.graph_key(state.step)
-        g = self.graphs.get(key) or self._capture(state, key)
+        key = self.key(state, update, reduce)
+        g = self.graphs.get(key) or self._capture(state, key, reduce)
         g.graph.replay()
         fused_field_head.launches += g.launches
         fused_field_head.rows += g.rows

@@ -4,10 +4,11 @@ no-autograd rule for the kernel head, one training step on the card
 against the same step on the CPU, the NGP hash encode and field, the
 nearest-vertex SMPL deformer (deform and bake) and LPIPS on the card
 against the CPU, the eval modes' frames (the head launched in each),
-the triplane field on the card against the CPU, and the training step
-captured as CUDA graphs against the eager step, and the flat frame
-captured as CUDA graphs against the eager frame. They skip where there is
-no card. This
+the triplane field on the card against the CPU, the training step
+captured as CUDA graphs against the eager step (single-device and the DP
+step on one NCCL rank), the per-pose grid builds on graphs against the
+eager builds, and the flat frame captured as CUDA graphs against the
+eager frame. They skip where there is no card. This
 file imports no jax; on a machine that has only PyTorch, skip the
 jax-loading conftest:
 
@@ -513,8 +514,8 @@ def test_step_graph_replays_the_eager_step_bit_for_bit(cuda):
     finally:
         torch.use_deterministic_algorithms(False)
     g = avatar.step_graphs
-    assert g.captures == 2 and set(g.graphs) == {(True, True, True),
-                                                 (False, False, True)}
+    assert g.captures == 2 and set(g.graphs) == {
+        ((True, True, True), None), ((False, False, True), None)}
     assert state.step == 6 and int(state.opt_state.count) == 6
     for i, (a, b) in enumerate(zip(eager, graph, strict=True)):
         assert torch.equal(a, b), i
@@ -540,6 +541,102 @@ def test_step_graph_counts_the_head_on_replay(cuda):
     # two replays, each warm-up one launch of the same rows
     assert fused_field_head.launches == 2 + g.captures
     assert fused_field_head.rows == eager[1] + g.captures * eager[1] // 2
+
+
+def _step_left(avatar, state, losses) -> list[torch.Tensor]:
+    """What a step leaves: parameters, gradients, Adam moments and
+    counts, the grid and the losses (copies)."""
+    opt = state.opt_state
+    out = [p.detach() for p in avatar.field.parameters()]
+    out += [p.grad for p in avatar.field.parameters()]
+    out += opt.moments()[0] + opt.moments()[1]
+    out += [opt.count, opt.notfinite_count, *state.grid]
+    return [t.clone() for t in out + [losses[k] for k in sorted(losses)]]
+
+
+def test_dp_step_graph_matches_eager_on_one_nccl_rank(cuda, tmp_path):
+    """The seeded golden avatar's DP step on a world of one NCCL rank in
+    this process (a real group, its all_reduce inside the graph): an
+    update step and a plain step, captured and replayed, leave the eager
+    DP steps' parameters, gradients, moments, counts, grid and losses bit
+    for bit under PyTorch's deterministic algorithms; the graphs are keyed
+    by the group."""
+    import numpy as np
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "tests"))
+    import torch_parallel_workers as workers
+    from instantavatar_torch.parallel import (make_dp_train_step,
+                                              make_mesh, rank_draws)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        mesh = make_mesh(n_ray=1)
+        batches = golden_tool.scene_batches()
+        n = int(np.prod(batches[0]["rays_o"].shape[:-1]))
+        runs = []
+        for graph in (False, True):
+            avatar, state = workers.seeded_golden_avatar(cuda)
+            left = []
+            for i, update in enumerate((True, False)):
+                draws = rank_draws(avatar, mesh, 20 + i, n, update)
+                state, losses = make_dp_train_step(
+                    avatar, mesh, update, graph=graph)(state, batches[i],
+                                                       draws)
+                left.append(_step_left(avatar, state, losses))
+            runs.append(left)
+        g = avatar.step_graphs
+        assert g.captures == 2 and {k[1] for k in g.graphs} == {mesh.group}
+        assert state.step == 2
+        for i in range(2):
+            for j, (a, b) in enumerate(zip(*(r[i] for r in runs),
+                                           strict=True)):
+                assert torch.equal(a, b), (i, j)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        dist.destroy_process_group()
+
+
+def test_grid_graph_returns_the_callers_grid(cuda):
+    """Two consecutive graphed ``build_pose_grid`` calls on two poses:
+    the first call's grid is unchanged by the second replay (the grids
+    are the caller's own), the two differ, and each equals the eager
+    build exactly; ``build_test_grid`` on graphs equals its eager build
+    exactly (deterministic algorithms)."""
+    import numpy as np
+    from chip_smoke import make_avatar
+    av = make_avatar(cuda, deformer_res=32, grid_size=32, voxel_res=16,
+                     plane_res=32, param_seed=3, sigma_bias=100.0,
+                     shell_margin=0.08)
+    state = av.init(np.zeros(10, np.float32))
+    b0 = {"betas": np.zeros(10, np.float32),
+          "body_pose": np.zeros(69, np.float32),
+          "global_orient": np.zeros(3, np.float32),
+          "transl": np.array([0.0, 0.15, 5.0], np.float32)}
+    bp = np.zeros(69, np.float32)
+    bp[47], bp[50] = 0.9, -0.9
+    b1 = {**b0, "body_pose": bp}
+    first = av.build_pose_grid(state, b0)
+    kept = [t.clone() for t in first]
+    second = av.build_pose_grid(state, b1)
+    torch.cuda.synchronize()
+    for a, k in zip(first, kept):
+        assert torch.equal(a, k)
+    assert not torch.equal(first.occupancy, second.occupancy)
+    for g, b in ((first, b0), (second, b1)):
+        for a, e in zip(g, av.build_pose_grid(state, b, graph=False)):
+            assert torch.equal(a, e)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        graphed = av.build_test_grid(state, b1)
+        eager = av.build_test_grid(state, b1, graph=False)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert int(graphed.occupancy.sum()) > 0
+    for a, e in zip(graphed, eager):
+        assert torch.equal(a, e)
+    gg = av.grid_graphs
+    assert gg.captures == 2 and gg.replays == 3
 
 
 # -- the flat frame as captured graphs ------------------------------------------
