@@ -30,7 +30,9 @@ points a user calls, and checks it in phases:
      the loss fall (bounded);
   8. validation: the 2 val frames rendered with ``eval_grid="density"``
      (``build_test_grid``, then the flat render through the kernel),
-     PSNR-bounded against the GT;
+     PSNR-bounded against the GT; then validate, one training step,
+     validate: the frame graphs capture nothing anew (they read the
+     parameters at their addresses) and each frame equals the eager one;
   9. training golden: one JAX update step and one plain step
      (``tests/data/torch_train_golden.npz``) replayed on the card: losses,
      gradients and the updated grid within the CPU tests' tolerances;
@@ -105,7 +107,8 @@ points a user calls, and checks it in phases:
      all-white frame's), and one 540 px frame of phase 4's avatar in each
      eval mode of ``EVAL_MODES`` (flat, windows, dense, uncached, the
      probed dense march, shared-corner, tiled rows, no transmittance cut,
-     the alpha skip): warm ms/frame, head launches and rows (each must
+     the alpha skip), each frame on graphs (the ray-bundle modes too):
+     warm ms/frame, head launches and rows (each must
      launch the head), rgb PSNR against the flat and the dense frame and,
      as in phase 5, against the mode's frame with the plain head
      (PSNR-bounded);
@@ -163,7 +166,23 @@ points a user calls, and checks it in phases:
      configuration in one process, 4 combined steps (the CLI itself runs
      on graphs in phase 15); (18.3) the animate poses' grids
      (``build_pose_grid``, and ``build_test_grid`` on two), graph equal to
-     eager exactly, ms per grid per mode.
+     eager exactly, ms per grid per mode;
+ 19. JAX's last jitted programs on graphs: phase 4's avatar at 540 px in
+     each ray-bundle mode (windows, dense, the probed dense march,
+     uncached), two frames of a session (bake, reuse) eager at the
+     budgets and on graphs, bit-equal under deterministic algorithms (or
+     FRAME_MIN_DB apart where a capture refuses that mode), each against
+     the exact-count eager frame (``render_rays_frame``, PSNR floor
+     FRAME_MIN_DB); then warm ms/frame, peak memory (a graph's capture
+     included, at most 1.2x the exact eager frame's), one profiled
+     frame's device kernels, busy share and host launch calls for the
+     exact eager frame, the eager frame at the budgets and the graph
+     frame, the captures with their seconds, the hit rays against the ray
+     budget; a dense frame at priors too small for it (RAYS_TINY) must
+     re-render on graphs, rebaking, to the exact frame; and
+     ``make_dp_render`` on the frame's rays over DP_RENDER_SHARDS
+     in-process shards, each shard one graph replay, held against eager
+     the same way and timed.
 
 Any failed check, a spawned rank's non-zero exit or a spawned run past
 its time limit exits non-zero. The last stdout line is
@@ -173,7 +192,8 @@ each path (turntable, training, val render, phase 11's CLI train run,
 Trainer validation, Trainer test, animate and novel_view, and phase 13's
 SMPL-deformer voxel-triplane frame, phase 14's eval modes, phase
 15's ranks and paths, phase 16's flagship graph run, phase 17's
-frame graphs and phase 18's DP, multi-subject and test-grid graphs; the
+frame graphs, phase 18's DP, multi-subject and test-grid graphs and
+phase 19's ray-bundle and ``make_dp_render`` graphs; the
 NGP and triplane paths evaluate the fp32 head and launch no kernel). A captured step's or frame's launches are counted
 once per replay, and the eager warm-up before each capture launches the
 head once more. ``--profile DIR`` also
@@ -292,6 +312,11 @@ MULTI_GRAPH_STEPS = 4
 # graph frame's PSNR floor against the exact-count eager frame, and the
 # priors that force an overflow (samples per block, cells)
 FRAME_POSES, FRAME_WARM, FRAME_MIN_DB, FRAME_TINY = 6, 2, 60.0, (0.05, 1024)
+# phase 19: the ray-bundle modes held and timed on graphs, the priors that
+# force a dense frame's overflow (the rays' share, cells), make_dp_render's
+# in-process ray shards and its timed calls
+RAY_MODES = ("windows", "dense", "cache_fused_probe", "uncached")
+RAYS_TINY, DP_RENDER_SHARDS, DP_RENDER_TIMED = (0.01, 1024), 4, 3
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 BF16_FLOP_PER_S = 989e12       # dense bf16 tensor-core peak, same source
 FP32_FLOP_PER_S = 67e12        # fp32 outside the tensor cores, same source
@@ -693,6 +718,11 @@ def train_phase(device, *, size=TRAIN_SIZE, n_train=TRAIN_FRAMES,
     check(not cuda or res["val_launches"] > 0,
           "the val render never launched the head")
     check(res["val_psnr"] >= VAL_MIN_DB, "val PSNR below its floor")
+    if cuda:
+        res.update(step_between_validations(
+            avatar, state, {k: v for k, v in val[0].items()
+                            if k not in ("rgb", "alpha")},
+            train[steps % n_train], gen, size))
 
     if profile_dir is not None and cuda:
         batches = [train[(steps + j) % n_train] for j in range(4)]
@@ -708,6 +738,41 @@ def train_phase(device, *, size=TRAIN_SIZE, n_train=TRAIN_FRAMES,
         profile(four_steps, profile_dir, "torch_train_profile",
                 "1 grid-update + 3 plain training steps")
     return res
+
+
+def step_between_validations(avatar, state, frame: dict, batch: dict, gen,
+                             size: int) -> dict:
+    """Phase 8: validate, take one training step, validate. The frame
+    graphs read the parameters at their addresses (their signature holds
+    no parameter versions), so the second validation captures nothing
+    new, and each validation frame on graphs equals the eager frame at
+    its parameters (``graph=False``; PSNR floor FRAME_MIN_DB), the second
+    moved by the step."""
+    def validate(graph: bool) -> dict:
+        out = avatar.render_frame(state, frame, image_shape=(size, size),
+                                  graph=graph)
+        torch.cuda.synchronize()
+        return out
+    g0, e0 = validate(True), validate(False)
+    fg = avatar.frame_graphs
+    c0, r0 = fg.captures, fg.replays
+    state, _ = avatar.step(state, batch, gen)
+    torch.cuda.synchronize()
+    g1, e1 = validate(True), validate(False)
+    dbs = (psnr(g0["rgb"], e0["rgb"]), psnr(g1["rgb"], e1["rgb"]))
+    err = float((g1["rgb"] - e1["rgb"]).abs().max())
+    moved = float((e1["rgb"] - e0["rgb"]).abs().max())
+    print(f"[val graph] validate, one training step, validate ({size}px): "
+          f"frame graphs captured {fg.captures - c0} anew over "
+          f"{fg.replays - r0} replays; graph vs eager PSNR {dbs[0]:.2f} / "
+          f"{dbs[1]:.2f} dB (bound {FRAME_MIN_DB}), after the step max "
+          f"|rgb diff| {err:.3e}, the step moved the eager frame by "
+          f"{moved:.3e}")
+    check(fg.captures == c0 and min(dbs) >= FRAME_MIN_DB and err < moved,
+          "a validation after a training step recaptured its frame graphs "
+          "or read stale parameters")
+    return {"recaptures_after_step": fg.captures - c0,
+            "val_graph_db": min(dbs)}
 
 
 def _exact_count_cache(avatar, state, dstate, grid) -> torch.Tensor:
@@ -1873,6 +1938,31 @@ def triplane_phase(dev, work: Path) -> dict:
     return res
 
 
+def modes_batch(dev) -> dict:
+    """Phases 14 and 19's 540 px frame: the pinhole basis and the
+    per-pixel rays (on the card) of one camera, a turned pose."""
+    from instantavatar_torch.data.rays import make_ray_basis, make_ray_grid
+    K = np.array([[2000.0, 0, W / 2], [0, 2000.0, H / 2], [0, 0, 1]])
+    ro, rd = make_ray_grid(K, np.eye(4), H, W)
+    return {"ray_basis": make_ray_basis(K, np.eye(4)),
+            "rays_o": torch.as_tensor(ro.reshape(-1, 3), device=dev),
+            "rays_d": torch.as_tensor(rd.reshape(-1, 3), device=dev),
+            "betas": np.zeros(10, np.float32),
+            "body_pose": np.zeros(69, np.float32),
+            "global_orient": np.array([0.0, 0.5, 0.0], np.float32),
+            "transl": np.array([0.0, 0.15, 5.0], np.float32)}
+
+
+def mode_avatar(avatar, mode: str):
+    """A model on phase 4's body, field and deformer with phase 4's
+    render knobs and eval mode ``mode``'s (``EVAL_MODES``)."""
+    from instantavatar_torch.train import AvatarModel
+    return AvatarModel(avatar.body, avatar.field, avatar.deformer,
+                       **{**AVATAR_540_KW, "grid_size": avatar.grid_size,
+                          "shell_margin": avatar.shell_margin},
+                       **EVAL_MODES[mode])
+
+
 def modes_phase(dev, avatar, state, grid) -> dict:
     """Phase 14, the eval modes: one 540 px frame of phase 4's avatar,
     state and shell grid in each of EVAL_MODES (a model per mode on the
@@ -1882,24 +1972,12 @@ def modes_phase(dev, avatar, state, grid) -> dict:
     and rows, rgb PSNR against the flat and the dense frame, and, as in
     phase 5, against the same mode rendered (and baked) with the plain
     head in the kernel's place."""
-    from instantavatar_torch.data.rays import make_ray_basis, make_ray_grid
     from instantavatar_torch.kernels import fused_field_head_ref
-    from instantavatar_torch.train import AvatarModel, RenderSession
-    K = np.array([[2000.0, 0, W / 2], [0, 2000.0, H / 2], [0, 0, 1]])
-    ro, rd = make_ray_grid(K, np.eye(4), H, W)
-    batch = {"ray_basis": make_ray_basis(K, np.eye(4)),
-             "rays_o": torch.as_tensor(ro.reshape(-1, 3), device=dev),
-             "rays_d": torch.as_tensor(rd.reshape(-1, 3), device=dev),
-             "betas": np.zeros(10, np.float32),
-             "body_pose": np.zeros(69, np.float32),
-             "global_orient": np.array([0.0, 0.5, 0.0], np.float32),
-             "transl": np.array([0.0, 0.15, 5.0], np.float32)}
+    from instantavatar_torch.train import RenderSession
+    batch = modes_batch(dev)
     res, rgbs = {}, {}
-    base = {**AVATAR_540_KW, "grid_size": avatar.grid_size,
-            "shell_margin": avatar.shell_margin}
-    for mode, knobs in EVAL_MODES.items():
-        av = AvatarModel(avatar.body, avatar.field, avatar.deformer,
-                         **base, **knobs)
+    for mode in EVAL_MODES:
+        av = mode_avatar(avatar, mode)
         sess = RenderSession()
         for _ in range(2):   # the budgets learned, the graph captured
             av.render_frame(state, batch, grid=grid, image_shape=(H, W),
@@ -2970,6 +3048,247 @@ def grid_graph_check(avatar, state, poses: list) -> dict:
     return res
 
 
+# -- phase 19: the ray-bundle frames and make_dp_render on graphs -----------
+
+_FRAME_OUT = ("rgb", "depth", "alpha", "counter")
+
+
+def _deterministic_pair(eager_fn, graph_fn) -> tuple[str, object, object]:
+    """``eager_fn()`` and ``graph_fn()`` under PyTorch's deterministic
+    algorithms, or, where a capture refuses that mode, both in the
+    default mode: (mode, eager result, graph result)."""
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        eager = eager_fn()
+        try:
+            return "deterministic", eager, graph_fn()
+        except RuntimeError as e:
+            print(f"[rays graph] capture refused deterministic algorithms "
+                  f"({str(e).splitlines()[0][:200]}); comparing in the "
+                  f"default mode")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return "default", eager_fn(), graph_fn()
+
+
+def _held(name: str, mode: str, eager: list, graphed: list) -> float:
+    """Graph frames against the eager ones: bit-equal under
+    deterministic algorithms, else at least FRAME_MIN_DB apart in rgb;
+    returns the largest difference of rgb, depth, alpha and counter."""
+    err = max(float((a[k].double() - b[k].double()).abs().max())
+              for a, b in zip(eager, graphed, strict=True)
+              for k in _FRAME_OUT)
+    if mode == "deterministic":
+        check(err == 0.0, f"{name}: the graph differs from the eager run "
+                          f"by {err:.3e} under deterministic algorithms")
+    else:
+        db = min(psnr(a["rgb"], b["rgb"]) for a, b in zip(eager, graphed))
+        check(db >= FRAME_MIN_DB, f"{name}: the graph is {db:.2f} dB from "
+                                  f"the eager run")
+    return err
+
+
+def _timed_peak(run, reps: int = 1) -> tuple[object, dict]:
+    """FRAME_WARM untimed calls of ``run`` (the captures among them), then
+    ``reps`` timed, then one profiled (``_profile_step``): (the last
+    timed result, ``_timing_line``'s numbers: the median ms, the peak MiB
+    over the warm and timed calls, a graph's capture included)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(FRAME_WARM):
+        run()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    t = {"ms": statistics.median(times),
+         "peak_mib": torch.cuda.max_memory_allocated() / 2 ** 20}
+    return out, {**t, **_profile_step(run)}
+
+
+def rays_mode_check(avatar, state, grid, batch, mode: str) -> dict:
+    """Phase 19 for one ray-bundle mode at 540 px on phase 4's avatar:
+    two frames of one session (the bake, then its reuse) eagerly at the
+    budgets and on graphs, held (``_held``), each also against the
+    exact-count eager frame (``render_rays_frame``, PSNR floor
+    FRAME_MIN_DB); then, on graphs captured anew in the default mode, the
+    exact eager frame, the eager frame at the budgets (the padded rays)
+    and the graph frame timed warm with their peak memory (the graph's
+    capture included: at most 1.2x the exact eager frame's), one profiled
+    frame each, and the captures with their seconds."""
+    from instantavatar_torch.train import RenderSession
+    av = mode_avatar(avatar, mode)
+
+    def two(graph):
+        sess = RenderSession()
+        outs = [av.render_frame(state, batch, grid=grid, image_shape=(H, W),
+                                session=sess, graph=graph)
+                for _ in range(2)]
+        torch.cuda.synchronize()
+        return outs
+    algo, eager, graphed = _deterministic_pair(lambda: two(False),
+                                               lambda: two(True))
+    err = _held(f"mode {mode}", algo, eager, graphed)
+    exact = av.render_rays_frame(state, batch, grid, (H, W), RenderSession())
+    exact_db = min(psnr(g["rgb"], exact["rgb"]) for g in graphed)
+    exact_err = max(float((g[k] - exact[k]).abs().max()) for g in graphed
+                    for k in _FRAME_OUT)
+    check(exact_db >= FRAME_MIN_DB, f"mode {mode}: the graph frame is "
+          f"{exact_db:.2f} dB from the exact-count eager frame")
+    check(all(g["n_samples"] == int(exact["n_samples"]) for g in graphed),
+          f"mode {mode}: the graph frame evaluated other samples than the "
+          f"exact-count frame")
+    # timed on graphs captured in the default mode
+    av.frame_graphs = None
+    sess_e, sess_b, sess_g = RenderSession(), RenderSession(), RenderSession()
+
+    def exact_run():
+        return av.render_rays_frame(state, batch, grid, (H, W), sess_e)
+
+    def budget_run():
+        return av.render_frame(state, batch, grid=grid, image_shape=(H, W),
+                               session=sess_b, graph=False)
+
+    def graph_run():
+        return av.render_frame(state, batch, grid=grid, image_shape=(H, W),
+                               session=sess_g)
+    _, t_e = _timed_peak(exact_run)
+    _, t_b = _timed_peak(budget_run)
+    (_, launches, rows), t_g = _timed_peak(lambda: _counted(graph_run))
+    rec = av._render_frame_async(state, batch, grid=grid, image_shape=(H, W),
+                                 session=sess_g)
+    av._finish_frame(rec)
+    hits = rec["counts"]()[0]
+    fg = av.frame_graphs
+    r = {"hits": hits, "ray_budget": rec["ray_budget"],
+         "algorithms": algo, "max_err": err, "exact_db": exact_db,
+         "exact_err": exact_err, "eager": t_e, "budget": t_b, "graph": t_g,
+         "captures": fg.captures, "capture_s": fg.capture_seconds,
+         "launches": launches, "rows": rows,
+         "samples": graphed[1]["n_samples"]}
+    tag = f"[rays graph] {mode}"
+    print(f"{tag}: graph vs eager at the budgets ({algo} algorithms, bake "
+          f"and reuse frames) max |diff| {err:.3e}; vs the exact-count "
+          f"eager frame PSNR min {exact_db:.2f} dB (bound {FRAME_MIN_DB}), "
+          f"max |diff| {exact_err:.3e}; {r['samples']} samples, {hits} "
+          f"hit rays of {H * W} (ray budget {r['ray_budget']})")
+    for kind, t in (("eager exact", t_e), ("eager at the budgets", t_b),
+                    ("graph", t_g)):
+        print(_timing_line(tag, kind, t, "frame", 1))
+    print(f"{tag}: {fg.captures} graphs captured in {fg.capture_seconds:.2f} "
+          f"s (warm-ups included), {fg.replays} replays; head launches per "
+          f"graph frame {launches} ({rows / max(launches, 1):.0f} rows each)")
+    check(launches > 0, f"mode {mode}: the graph frame launched no head")
+    check(t_g["peak_mib"] <= 1.2 * t_e["peak_mib"], f"mode {mode}: graph "
+          f"peak {t_g['peak_mib']:.1f} MiB above 1.2x eager "
+          f"{t_e['peak_mib']:.1f}")
+    return r
+
+
+def rays_overflow_check(avatar, state, grid, batch) -> dict:
+    """Phase 19: a dense frame on graphs at priors too small for it
+    (RAYS_TINY: 1% of the rays, 1024 cells) overflows both; it must
+    re-render on graphs (rebaking) to the exact-count frame."""
+    from instantavatar_torch.train import RenderSession
+    av = mode_avatar(avatar, "dense")
+    av.cell_budget = RAYS_TINY[1]
+    passes = []
+    dispatch = av._dispatch_frame
+    av._dispatch_frame = lambda rec, rebake=False: (
+        passes.append((rec["ray_budget"], rec["cell_budget"], rebake)),
+        dispatch(rec, rebake))
+    out = av._finish_frame(av._render_frame_async(
+        state, batch, grid=grid, image_shape=(H, W),
+        ray_budget_frac=RAYS_TINY[0]))
+    del av._dispatch_frame
+    exact = av.render_rays_frame(state, batch, grid, (H, W), RenderSession())
+    db = psnr(out["rgb"], exact["rgb"])
+    fg = av.frame_graphs
+    print(f"[rays graph] dense, forced overflow at priors {RAYS_TINY}: "
+          f"{len(passes)} renders (ray, cell budget, rebake: {passes}), "
+          f"{fg.replays} graph replays, {fg.captures} captures; PSNR "
+          f"{db:.2f} dB against the exact-count frame (bound "
+          f"{FRAME_MIN_DB}), samples {out['n_samples']} vs "
+          f"{int(exact['n_samples'])}")
+    check(len(passes) >= 2 and any(p[2] for p in passes[1:])
+          and fg.replays == len(passes) and db >= FRAME_MIN_DB
+          and out["n_samples"] == int(exact["n_samples"]),
+          "the forced ray-bundle overflow did not re-render on graphs to "
+          "the exact frame")
+    return {"renders": len(passes), "db": db}
+
+
+def dp_render_graph_check(avatar, state, grid, batch) -> dict:
+    """Phase 19: ``make_dp_render`` on the 540 px frame's rays over
+    DP_RENDER_SHARDS in-process ray shards (``make_mesh`` with no process
+    group), each shard's eval render (the full search per sample, the
+    fused head) one graph replay: held against eager (``_held``), then
+    timed warm in the default mode on a fresh capture."""
+    from instantavatar_torch.parallel import make_dp_render, make_mesh
+    av = mode_avatar(avatar, "flat")
+    mesh = make_mesh(n_ray=DP_RENDER_SHARDS)
+    check(mesh.group is None and mesh.n_ray == DP_RENDER_SHARDS,
+          "make_dp_render's mesh is not in-process")
+    rays = {k: v for k, v in batch.items() if k != "ray_basis"}
+
+    def run(graph):
+        out = make_dp_render(av, mesh, graph=graph)(state, rays, grid)
+        torch.cuda.synchronize()
+        return [out]
+    algo, eager, graphed = _deterministic_pair(lambda: run(False),
+                                               lambda: run(True))
+    err = _held("make_dp_render", algo, eager, graphed)
+    alpha = float(graphed[0]["alpha"].mean())
+    check(bool(torch.isfinite(graphed[0]["rgb"]).all())
+          and 0.05 < alpha < 0.95, f"make_dp_render: non-finite or "
+          f"implausible frame (alpha coverage {alpha:.3f})")
+    av.frame_graphs = None
+    _, t_e = _timed_peak(lambda: run(False), DP_RENDER_TIMED)
+    (_, launches, rows), t_g = _timed_peak(
+        lambda: _counted(lambda: run(True)), DP_RENDER_TIMED)
+    fg = av.frame_graphs
+    tag = "[dp render graph]"
+    print(f"{tag} {DP_RENDER_SHARDS} in-process shards of a {H} px frame's "
+          f"rays ({H * W // DP_RENDER_SHARDS} each): graph vs eager "
+          f"({algo} algorithms) max |diff| {err:.3e}; alpha coverage "
+          f"{alpha:.3f}")
+    for kind, t in (("eager", t_e), ("graph", t_g)):
+        print(_timing_line(tag, kind, t, "frame", DP_RENDER_TIMED))
+    print(f"{tag} {fg.captures} graphs captured in {fg.capture_seconds:.2f} "
+          f"s, {fg.replays} replays; head launches per frame {launches} "
+          f"({rows / max(launches, 1):.0f} rows each)")
+    check(launches > 0, "make_dp_render's graphs launched no head")
+    check(t_g["peak_mib"] <= 1.2 * t_e["peak_mib"], f"make_dp_render: "
+          f"graph peak {t_g['peak_mib']:.1f} MiB above 1.2x eager "
+          f"{t_e['peak_mib']:.1f}")
+    return {"algorithms": algo, "max_err": err, "eager": t_e, "graph": t_g,
+            "captures": fg.captures,
+            "capture_s": fg.capture_seconds, "launches": launches,
+            "rows": rows}
+
+
+def rays_graph_phase(dev, avatar, state, grid) -> dict:
+    """Phase 19: JAX's last jitted programs on graphs: each ray-bundle
+    mode (``rays_mode_check``), a forced overflow
+    (``rays_overflow_check``) and ``make_dp_render``
+    (``dp_render_graph_check``). Returns each one's numbers and the head's
+    launches and rows per path."""
+    batch = modes_batch(dev)
+    res = {m: rays_mode_check(avatar, state, grid, batch, m)
+           for m in RAY_MODES}
+    res["overflow"] = rays_overflow_check(avatar, state, grid, batch)
+    res["dp_render"] = dp_render_graph_check(avatar, state, grid, batch)
+    res["paths"] = {**{f"rays_graph_{m}": (res[m]["launches"],
+                                           res[m]["rows"])
+                       for m in RAY_MODES},
+                    "dp_render_graph": (res["dp_render"]["launches"],
+                                        res["dp_render"]["rows"])}
+    return res
+
+
 def main(profile_dir: Path | None) -> int:
     t_start = time.perf_counter()
     # -- 1. device --------------------------------------------------------
@@ -3160,6 +3479,8 @@ def main(profile_dir: Path | None) -> int:
     modes = modes_phase(dev, avatar, state, grid)
     # -- 17 (and 18.3). the flat frame and the per-pose grids on graphs -------
     par.update(frame_phase(dev, avatar, state, grid, frames)["paths"])
+    # -- 19. the ray-bundle frames and make_dp_render on graphs ---------------
+    par.update(rays_graph_phase(dev, avatar, state, grid)["paths"])
 
     # -- 10. the kernel at each path's rows per launch ------------------------
     paths = {**cli["paths"], **demo["paths"], **par,

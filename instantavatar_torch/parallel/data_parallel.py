@@ -25,7 +25,10 @@ process with its own device), and the collectives are explicit:
   * **Sharded inference**: ``make_dp_render`` (the eval render of ray
     batches) and ``DPFrameRenderer`` (the flat frame render, one band of
     the image per rank through ``render_stream`` and the fused head), the
-    outputs all-gathered in ray order.
+    outputs all-gathered in ray order. On a CUDA model each local shard
+    or band is one replay of a captured CUDA graph
+    (``train/frame_graph.py``), the gather outside it, so gloo and NCCL
+    groups both replay.
 
 A mesh made without an initialized process group is a world of 1: one
 process holds every subject and ray shard. The renderers then render
@@ -298,15 +301,25 @@ def _pack(out: dict) -> torch.Tensor:
                         for k in _OUT_KEYS[1:]], dim=1)
 
 
-def make_dp_render(avatar: AvatarModel, mesh: Mesh):
+def make_dp_render(avatar: AvatarModel, mesh: Mesh, *,
+                   graph: bool | None = None):
     """Ray-sharded inference: ``render(state, batch, grid) -> dict``, the
     eval render (``AvatarModel.render(eval_mode=True)``: the full search,
     the eval head, midpoint samples, no noise) of this rank's ray shard of
     ``batch`` (``rays_o``/``rays_d``, any leading shape), the rgb, depth,
-    alpha and counter all-gathered in ray order into the batch's shape."""
+    alpha and counter all-gathered in ray order into the batch's shape.
+
+    On a CUDA model each local shard's render is one replay of a captured
+    CUDA graph (JAX jits the ``shard_map`` program; ``FrameGraphs`` keyed
+    by the shard's shapes), its rays and pose staged into static buffers
+    and its outputs cloned before the next replay; the gather runs outside
+    the graph, on a gloo group too. ``graph=False`` renders eagerly;
+    ``graph=True`` raises on a CPU model, and a failed capture raises."""
+    graph = avatar._graphed(graph)
+
     def render(state: TrainState, batch, grid) -> dict:
-        parts = [_pack(avatar.render(state, shard_batch(batch, mesh, c),
-                                     grid=grid, eval_mode=True))
+        program = avatar._frame_program("_eval_render", graph)
+        parts = [_pack(program(state, shard_batch(batch, mesh, c), grid)[0])
                  for c in _local_shards(mesh)]
         full, _ = _gather(torch.cat(parts), mesh)
         shape = tuple(np.shape(batch["rays_o"])[:-1])
@@ -456,7 +469,7 @@ class DPFrameRenderer:
               **{k: v[sl] for k, v in frame.per_pixel.items()}}
         plan = av._bake_plan(rec["session"], rec["key"], rec["refs"],
                              rec["grid"], rec["cell_budget"], rebake)
-        out, counts = av._flat_program(rec["graph"])(
+        out, counts = av._frame_program("_flat_frame", rec["graph"])(
             rec["state"], bb, rec["grid"], frame.band_shape, plan,
             rec["samp_budget"], rec["cell_budget"])
         av._commit_bake(rec["session"], plan)

@@ -85,10 +85,11 @@ its one fetch, the (kept samples, occupied cells, evaluated samples)
 triple, which ``_finish_frame`` compares with the budgets: on an
 overflow it re-renders with larger ones (at most 4 passes, then a
 ``RuntimeWarning``). ``render_frames`` keeps two frames in flight. On a
-CUDA model the flat frame is one replay of a captured CUDA graph
-(``frame_graph.FrameGraphs``, per image shape, budgets and bake or
-reuse), and so is each per-pose grid build (``grid_graph.GridGraphs``,
-per grid kind); on the CPU, and in the ray-bundle modes, the frame runs
+CUDA model every budgeted frame, flat or ray-bundle, is one replay of a
+captured CUDA graph (``frame_graph.FrameGraphs``, per program, image
+shape, budgets and bake or reuse), and so are each per-pose grid build
+(``grid_graph.GridGraphs``, per grid kind) and each shard of
+``parallel.make_dp_render`` (``_eval_render``); on the CPU they run
 eagerly.
 ``render_stream`` and ``render_rays_frame`` called without budgets
 select at the exact counts (``torch.nonzero``), which the budgeted frame
@@ -97,6 +98,7 @@ f16/u8 frame buffer and config lock have no counterpart here.
 """
 from __future__ import annotations
 
+import functools
 import math
 import warnings
 from typing import NamedTuple
@@ -721,7 +723,7 @@ class AvatarModel:
                 for i in range(k)]
 
     def _graphed(self, graph: bool | None) -> bool:
-        """Whether a step or a flat frame replays a captured CUDA graph: by
+        """Whether a step, a frame or a grid replays a captured CUDA graph: by
         default on a CUDA model, never on the CPU (where ``graph=True``
         raises)."""
         if graph is None:
@@ -1191,15 +1193,26 @@ class AvatarModel:
         return ({k: out[k] for k in FRAME_KEYS},
                 torch.stack([stream.n_hit, stream.n_occ, stream.n_hit]))
 
-    def _flat_program(self, graph: bool):
-        """The flat frame's program: one replay of its captured graph
-        (``FrameGraphs.run``) or ``_flat_frame`` run eagerly."""
+    def _frame_program(self, program: str, graph: bool):
+        """A frame's device program by name (``_flat_frame``,
+        ``_rays_frame`` or ``_eval_render``): one replay of its captured
+        graph (``FrameGraphs.run``) or the method run eagerly. Both take
+        the method's arguments and return (outputs, counts)."""
         if not graph:
-            return self._flat_frame
+            return getattr(self, program)
         if self.frame_graphs is None:
             from .frame_graph import FrameGraphs
             self.frame_graphs = FrameGraphs(self)
-        return self.frame_graphs.run
+        return functools.partial(self.frame_graphs.run, program)
+
+    @torch.no_grad()
+    def _eval_render(self, state: TrainState, batch,
+                     grid: DensityGridState | None) -> tuple[dict, None]:
+        """``render(eval_mode=True)`` of a ray batch as a device program,
+        which ``FrameGraphs`` captures for ``parallel.make_dp_render``:
+        (rgb, depth, alpha, counter; no counts)."""
+        out = self.render(state, batch, grid=grid, eval_mode=True)
+        return {k: out[k] for k in FRAME_KEYS}, None
 
     @torch.no_grad()
     def render_rays_frame(self, state: TrainState, batch,
@@ -1218,9 +1231,11 @@ class AvatarModel:
         then the hit rays rendered in chunks of ``chunk`` rays and the
         rest left as background. ``ray_budget`` and ``cell_budget`` are
         JAX's static budgets (the first ``ray_budget`` hit rays are
-        rendered); without them, the exact counts. Returns what
-        ``render_frame`` returns, the counts as device scalars;
-        ``n_samples`` counts the evaluated samples."""
+        rendered); without them, the exact counts. Runs eagerly: the
+        exact-count frame is the reference of the captured one
+        (``render_frame``). Returns what ``render_frame`` returns, the
+        counts as device scalars; ``n_samples`` counts the evaluated
+        samples."""
         key, refs = self._frame_key(state, batch)
         plan = (self._bake_plan(session, key, refs, grid, cell_budget)
                 if self._use_cache() else None)
@@ -1229,11 +1244,16 @@ class AvatarModel:
         self._commit_bake(session, plan)
         return {**out, "n_samples": counts[2], "n_occ": counts[1]}
 
+    @torch.no_grad()
     def _rays_frame(self, state: TrainState, batch, grid: DensityGridState,
                     image_shape: tuple[int, int] | None,
                     plan: _BakePlan | None, chunk: int,
                     ray_budget: int | None, cell_budget: int | None
                     ) -> tuple[dict, torch.Tensor]:
+        """The ray-bundle frame's device program, which ``FrameGraphs``
+        captures at a static ``ray_budget`` (``render_rays_frame``).
+        Returns (rgb, depth, alpha, counter; the counts (3,) int64: hit
+        rays, occupied cells, evaluated samples)."""
         dev = self.device
         G = self.grid_size
         cano = state.deformer_cano
@@ -1456,7 +1476,7 @@ class AvatarModel:
         rec = dict(state=state, batch=rbatch, grid=grid,
                    image_shape=image_shape, session=session, key=key,
                    refs=refs, skey=skey, n=n, flat=flat, chunk=chunk,
-                   graph=flat and self._graphed(graph),
+                   graph=self._graphed(graph),
                    cell_budget=min(session.cell_budget.get(skey)
                                    or self.cell_budget, G3))
         if flat:
@@ -1475,9 +1495,9 @@ class AvatarModel:
         return rec
 
     def _dispatch_frame(self, rec: dict, rebake: bool = False) -> None:
-        """Enqueue ``rec``'s frame at its budgets: one graph replay (flat,
-        on a CUDA model) or the eager program; then the copy of its counts
-        to the host behind an event."""
+        """Enqueue ``rec``'s frame at its budgets: one graph replay (on a
+        CUDA model) or the eager program; then the copy of its counts to
+        the host behind an event."""
         session, use_cache = rec["session"], self._use_cache()
         plan = (self._bake_plan(session, rec["key"], rec["refs"],
                                 rec["grid"], rec["cell_budget"], rebake)
@@ -1485,13 +1505,12 @@ class AvatarModel:
         args = (rec["state"], rec["batch"], rec["grid"], rec["image_shape"],
                 plan)
         if rec["flat"]:
-            out, counts = self._flat_program(rec["graph"])(
+            out, counts = self._frame_program("_flat_frame", rec["graph"])(
                 *args, rec["samp_budget"], rec["cell_budget"])
         else:
-            with torch.no_grad():
-                out, counts = self._rays_frame(
-                    *args, rec["chunk_eff"], rec["ray_budget"],
-                    rec["cell_budget"])
+            out, counts = self._frame_program("_rays_frame", rec["graph"])(
+                *args, rec["chunk_eff"], rec["ray_budget"],
+                rec["cell_budget"])
         self._commit_bake(session, plan)
         rec.update(out=out, counts=_fetch_counts(counts),
                    limit=plan.limit if use_cache else math.inf)
@@ -1572,9 +1591,10 @@ class AvatarModel:
         ``grid`` None builds the frame's grid (see ``_frame_grid``).
         ``session`` carries the learned budgets and the memos across
         calls (without one, each call starts from the priors). On a CUDA
-        model the flat frame replays a captured CUDA graph
-        (``frame_graph.FrameGraphs``; a failed capture raises);
-        ``graph=False`` runs it eagerly. ``payload`` sizes the JAX
+        model each budgeted frame, flat or ray-bundle, and each re-render
+        replays a captured CUDA graph (``frame_graph.FrameGraphs``; a
+        failed capture raises); ``graph=False`` runs it eagerly, and
+        ``graph=True`` raises on a CPU model. ``payload`` sizes the JAX
         render's buffer and is accepted for its signature only. Returns
         device tensors rgb (n, 3), depth, alpha, counter (n,) plus the
         frame's sample and occupied-cell counts."""

@@ -7,8 +7,10 @@ against the CPU, the eval modes' frames (the head launched in each),
 the triplane field on the card against the CPU, the training step
 captured as CUDA graphs against the eager step (single-device and the DP
 step on one NCCL rank), the per-pose grid builds on graphs against the
-eager builds, and the flat frame captured as CUDA graphs against the
-eager frame. They skip where there is no card. This
+eager builds, the flat and the ray-bundle frames and
+``make_dp_render``'s shards captured as CUDA graphs against the eager
+ones, and a frame graph replayed after an in-place parameter update.
+They skip where there is no card. This
 file imports no jax; on a machine that has only PyTorch, skip the
 jax-loading conftest:
 
@@ -647,26 +649,11 @@ def test_frame_graph_matches_the_eager_frame(cuda):
     the card (``graph=False``): every frame within 1e-6; the head's
     launches rise by the captured launches on each replay; the turntable
     reuses the bake (a reuse graph) and the new pose bakes again."""
-    import numpy as np
-    from instantavatar_torch.data.rays import make_ray_basis
     from instantavatar_torch.train import RenderSession
-    from chip_smoke import make_avatar
     H = 48
-    f = 2000.0 * H / 540
-    K = np.array([[f, 0, H / 2], [0, f, H / 2], [0, 0, 1]])
-    b = {"ray_basis": make_ray_basis(K, np.eye(4)),
-         "betas": np.zeros(10, np.float32),
-         "body_pose": np.zeros(69, np.float32),
-         "global_orient": np.zeros(3, np.float32),
-         "transl": np.array([0.0, 0.15, 5.0], np.float32)}
-    frames = [{**b, "global_orient": np.array([0.0, y, 0.0], np.float32)}
-              for y in (0.0, 0.4, 0.8)]
-    frames.append({**b, "body_pose": b["body_pose"] + 0.1})
-    av = make_avatar(cuda, deformer_res=32, grid_size=32, voxel_res=16,
-                     plane_res=32, param_seed=3, sigma_bias=100.0,
-                     shell_margin=0.08)
-    state = av.init(np.zeros(10, np.float32))
-    grid = av.build_pose_grid(state, b)
+    av, state = _small_avatar(cuda)
+    frames = _frames_48()
+    grid = av.build_pose_grid(state, frames[0])
     runs = {}
     for graph in (False, True):
         before = fused_field_head.launches
@@ -678,9 +665,143 @@ def test_frame_graph_matches_the_eager_frame(cuda):
         runs[graph, "launches"] = fused_field_head.launches - before
     g = av.frame_graphs
     assert g.captures >= 2 and g.replays - replays >= len(frames)
-    assert {k[3] for k in g.graphs} == {True, False}   # bake and reuse
+    assert {k.bake for k in g.graphs} == {True, False}   # bake and reuse
     assert runs[True, "launches"] >= len(frames)
     for e, c in zip(runs[False], runs[True]):
         assert e["n_samples"] == c["n_samples"] > 0
         for k in ("rgb", "depth", "alpha", "counter"):
             assert float((e[k] - c[k]).abs().max()) <= 1e-6, k
+
+
+def _small_avatar(cuda, **knobs):
+    import numpy as np
+    from chip_smoke import make_avatar
+    av = make_avatar(cuda, deformer_res=32, grid_size=32, voxel_res=16,
+                     plane_res=32, param_seed=3, sigma_bias=100.0,
+                     shell_margin=0.08)
+    for k, v in knobs.items():
+        setattr(av, k, v)
+    return av, av.init(np.zeros(10, np.float32))
+
+
+def _frames_48(with_rays: bool = False) -> list[dict]:
+    """A 48 px turntable of 3 and a new pose (per-pixel rays optional)."""
+    import numpy as np
+    from instantavatar_torch.data.rays import make_ray_basis, make_ray_grid
+    H = 48
+    f = 2000.0 * H / 540
+    K = np.array([[f, 0, H / 2], [0, f, H / 2], [0, 0, 1]])
+    b = {"ray_basis": make_ray_basis(K, np.eye(4)),
+         "betas": np.zeros(10, np.float32),
+         "body_pose": np.zeros(69, np.float32),
+         "global_orient": np.zeros(3, np.float32),
+         "transl": np.array([0.0, 0.15, 5.0], np.float32)}
+    if with_rays:
+        ro, rd = make_ray_grid(K, np.eye(4), H, H)
+        b.update(rays_o=ro.reshape(-1, 3), rays_d=rd.reshape(-1, 3))
+    frames = [{**b, "global_orient": np.array([0.0, y, 0.0], np.float32)}
+              for y in (0.0, 0.4, 0.8)]
+    return frames + [{**b, "body_pose": b["body_pose"] + 0.1}]
+
+
+@pytest.mark.parametrize("mode", ["windows", "dense", "cache_fused_probe",
+                                  "uncached"])
+def test_ray_frame_graph_matches_the_eager_frame(cuda, mode):
+    """Each ray-bundle mode: a 48 px turntable of 3 and a new pose
+    through ``render_frames`` on captured ``_rays_frame`` graphs against
+    the same budgeted frames run eagerly (``graph=False``), bit for bit
+    under deterministic algorithms, and within 1e-6 of the exact-count
+    ``render_rays_frame`` through one session of its own (the turntable
+    reuses its first bake there too); the head's launches rise on the
+    replays (by at least the eager frames' launches)."""
+    from instantavatar_torch.train import RenderSession
+    knobs = {"windows": dict(eval_sampling="windows"),
+             "dense": dict(eval_sampling="dense"),
+             "cache_fused_probe": dict(eval_sampling="dense",
+                                       cache_fused_probe=True),
+             "uncached": dict(use_warp_cache=False)}[mode]
+    av, state = _small_avatar(cuda, **knobs)
+    frames = _frames_48(with_rays=True)
+    grid = av.build_pose_grid(state, frames[0])
+    runs = {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for graph in (False, True):
+            before = fused_field_head.launches
+            runs[graph] = list(av.render_frames(
+                state, frames, grid=grid, image_shape=(48, 48),
+                session=RenderSession(), graph=graph))
+            torch.cuda.synchronize()
+            runs[graph, "launches"] = fused_field_head.launches - before
+    finally:
+        torch.use_deterministic_algorithms(False)
+    g = av.frame_graphs
+    assert g.captures >= 1 and g.replays >= len(frames)
+    assert {k.program for k in g.graphs} == {"_rays_frame"}
+    # the eager warm-up before each capture launches the head once more
+    assert runs[True, "launches"] >= runs[False, "launches"] > 0
+    exact_session = RenderSession()
+    for f, e, c in zip(frames, runs[False], runs[True]):
+        assert e["n_samples"] == c["n_samples"] > 0
+        exact = av.render_rays_frame(state, f, grid, (48, 48),
+                                     exact_session)
+        for k in ("rgb", "depth", "alpha", "counter"):
+            assert torch.equal(e[k], c[k]), k
+            assert float((exact[k] - c[k]).abs().max()) <= 1e-6, k
+
+
+def test_dp_render_graph_matches_eager(cuda):
+    """``make_dp_render`` over two ray shards in one process: each shard
+    one replay of its ``_eval_render`` graph (one capture for the two
+    equal shards), the frame bit-equal to the eager shards' under
+    deterministic algorithms, and the head launched inside the graph."""
+    import numpy as np
+    from instantavatar_torch.parallel import Mesh, make_dp_render
+    av, state = _small_avatar(cuda)
+    f = _frames_48(with_rays=True)[1]
+    b = {**{k: v for k, v in f.items() if k != "ray_basis"},
+         "rays_o": f["rays_o"].reshape(48, 48, 3),
+         "rays_d": f["rays_d"].reshape(48, 48, 3)}
+    grid = av.build_pose_grid(state, b)
+    mesh = Mesh(1, 2, 0, 0, None)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        eager = make_dp_render(av, mesh, graph=False)(state, b, grid)
+        before = fused_field_head.launches
+        graphed = make_dp_render(av, mesh)(state, b, grid)
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    g = av.frame_graphs
+    assert g.captures == 1 and g.replays == 2
+    assert fused_field_head.launches > before
+    assert float(np.asarray(graphed["alpha"].cpu()).max()) > 0
+    for k in ("rgb", "depth", "alpha", "counter"):
+        assert torch.equal(eager[k], graphed[k]), k
+
+
+def test_frame_graph_reads_updated_parameters(cuda):
+    """A flat frame on graphs, then an in-place update of every field
+    parameter (as the optimizer makes), then the frame again: no new
+    capture, and the replay equals the eager frame at the new parameters
+    (not the old frame): the graphs read the parameters at their
+    addresses."""
+    av, state = _small_avatar(cuda)
+    f = _frames_48()[1]
+    grid = av.build_pose_grid(state, f)
+
+    def frame(graph):
+        out = av.render_frame(state, f, grid=grid, image_shape=(48, 48),
+                              graph=graph)
+        torch.cuda.synchronize()
+        return out
+    before = frame(True)
+    captures = av.frame_graphs.captures
+    with torch.no_grad():
+        for p in av.field.parameters():
+            p.mul_(0.9).add_(0.01)
+    after, eager = frame(True), frame(False)
+    assert av.frame_graphs.captures == captures
+    assert float((after["rgb"] - before["rgb"]).abs().max()) > 1e-3
+    for k in ("rgb", "depth", "alpha", "counter"):
+        assert float((after[k] - eager[k]).abs().max()) <= 1e-6, k

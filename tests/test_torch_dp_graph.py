@@ -3,9 +3,11 @@ the step body that a CUDA model captures for a ray-data-parallel step
 (``grads_and_losses(in_place=True)``, the ray group's ``all_reduce`` of
 one bucket written back in place, the optimizer) reads nothing back to
 the host and leaves what the eager DP step leaves, bit for bit; the
-multi-subject step reads nothing back between its subjects; and
+multi-subject step reads nothing back between its subjects;
 ``graph=True`` is refused on the CPU and on a gloo group, whose
-collectives cannot be captured.
+collectives cannot be captured; and ``make_dp_render``'s per-shard eval
+render (the program a CUDA model captures, the gather outside it) reads
+nothing back and equals ``render(eval_mode=True)`` of each shard.
 
 The ray group is a real in-process gloo group of one rank (a FileStore
 under the test's tmp dir), so the ``all_reduce`` runs; the eager DP step
@@ -22,8 +24,9 @@ import pytest
 import torch
 import torch.distributed as dist
 
-from instantavatar_torch.parallel import (Mesh, make_dp_train_step,
-                                          make_mesh, make_multi_subject_step,
+from instantavatar_torch.parallel import (Mesh, make_dp_render,
+                                          make_dp_train_step, make_mesh,
+                                          make_multi_subject_step,
                                           shard_batch, stack_subjects)
 from instantavatar_torch.parallel.data_parallel import _ray_reduce
 from instantavatar_torch.train.step_graph import step_body
@@ -159,3 +162,44 @@ def test_multi_subject_step_reads_nothing_back(gloo_mesh):
         for i, (x, y) in enumerate(zip(_left(av, st, losses[k]),
                                        _left(rav, rst, rl), strict=True)):
             assert torch.equal(x, y), (k, i)
+
+
+def _whole_batch(i: int = 0) -> dict:
+    """Golden batch ``i`` (two 16^2 patches) as CPU tensors."""
+    return {k: torch.as_tensor(np.asarray(v))
+            for k, v in golden_tool.scene_batches()[i].items()}
+
+
+@pytest.mark.parametrize("layout", ["two_shards", "gloo"])
+def test_dp_render_reads_nothing_back(gloo_mesh, layout):
+    """``make_dp_render`` over two ray shards rendered in turn (a world of
+    1) and on the gloo group of one rank (its all_gather included): after
+    one call, which makes the cached constants, a call makes no host read
+    from its first shard's eval render (``AvatarModel._eval_render``: the
+    full search per sample, the eval head) to the gathered frame, and the
+    frame equals ``render(eval_mode=True)`` of each shard, bit for bit
+    (samples evaluated: the counter is not all zero)."""
+    av, st = _subject()
+    mesh = Mesh(1, 2, 0, 0, None) if layout == "two_shards" else gloo_mesh
+    b = _whole_batch()
+    render = make_dp_render(av, mesh)
+    render(st, b, st.grid)
+    with NoHostRead():
+        out = render(st, b, st.grid)
+    shards = [av.render(st, shard_batch(b, mesh, c), grid=st.grid,
+                        eval_mode=True) for c in range(mesh.n_ray)]
+    for k in ("rgb", "depth", "alpha", "counter"):
+        want = torch.cat([s[k].float() for s in shards]) \
+            .reshape(out[k].shape)
+        assert torch.equal(out[k], want), k
+    assert float(out["counter"].sum()) > 0 and av.frame_graphs is None
+
+
+def test_dp_render_graph_true_raises_on_cpu(gloo_mesh):
+    """``make_dp_render(graph=True)`` on a CPU model raises ValueError, in
+    a world of 1 and on the gloo group (whose gather sits outside the
+    graph, so only the CPU refuses)."""
+    av, _ = _subject()
+    for mesh in (Mesh(1, 2, 0, 0, None), gloo_mesh):
+        with pytest.raises(ValueError, match="CUDA model"):
+            make_dp_render(av, mesh, graph=True)

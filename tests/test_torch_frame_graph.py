@@ -1,9 +1,10 @@
 """JAX's one-program eval frame in the port, on the CPU: the static
 sample and cell budgets that ``RenderSession`` learns, the overflow
 re-render, the pipelined ``render_frames``, a frame path that reads
-nothing back to the host before its one fetch (the property that lets
-the card capture it as a CUDA graph, ``train/frame_graph.py``), and
-``DPFrameRenderer``'s budgets on spawned gloo ranks.
+nothing back to the host before its one fetch in the flat and in every
+ray-bundle mode (the property that lets the card capture it as a CUDA
+graph, ``train/frame_graph.py``), ``graph=True`` refused on a CPU model,
+and ``DPFrameRenderer``'s budgets on spawned gloo ranks.
 
 The scene is tests/test_torch_slice.py's (the opaque seeded
 voxel-triplane avatar, SNARF res 32, grid 32, the shell grid) at 48 px.
@@ -62,6 +63,24 @@ def _avatar(pnp, **kw):
 def _max_gap(a: dict, b: dict) -> float:
     return max(float((a[k].double() - b[k].double()).abs().max())
                for k in KEYS)
+
+
+def _with_rays(batch: dict, h: int = H) -> dict:
+    """The h x h px batch with its per-pixel ``rays_o``/``rays_d`` (the
+    ray-bundle modes read them), from ``slice_tests._batch``'s camera."""
+    from instantavatar_torch.data.rays import make_ray_grid
+    f = 2000.0 * h / 540
+    K = np.array([[f, 0, h / 2], [0, f, h / 2], [0, 0, 1]])
+    ro, rd = make_ray_grid(K, np.eye(4), h, h)
+    return {**batch, "rays_o": ro.reshape(-1, 3), "rays_d": rd.reshape(-1, 3)}
+
+
+# the ray-bundle modes' knobs (JAX's AvatarModel knobs)
+RAY_MODES = {"windows": dict(eval_sampling="windows"),
+             "dense": dict(eval_sampling="dense"),
+             "cache_fused_probe": dict(eval_sampling="dense",
+                                       cache_fused_probe=True),
+             "uncached": dict(use_warp_cache=False)}
 
 
 def _exact(av, state, batch, grid, shape=(H, H)):
@@ -160,11 +179,7 @@ def test_overflow_rerenders_to_the_same_frame(scene, mode):
     state = scene["state"]
     if mode == "dense":
         av.eval_sampling = "dense"
-        from instantavatar_torch.data.rays import make_ray_grid
-        f = 2000.0 * H / 540
-        K = np.array([[f, 0, H / 2], [0, f, H / 2], [0, 0, 1]])
-        ro, rd = make_ray_grid(K, np.eye(4), H, H)
-        b = {**b, "rays_o": ro.reshape(-1, 3), "rays_d": rd.reshape(-1, 3)}
+        b = _with_rays(b)
     passes = []
     dispatch = av._dispatch_frame
     av._dispatch_frame = lambda rec, rebake=False: (
@@ -237,7 +252,7 @@ def test_render_frames_pipelined_matches_frame_by_frame(scene):
 
 @pytest.mark.parametrize("case", [
     "given", "smpl_shell", "density", "shared_corner_eval",
-    "flat_tile_rows", "term_T_none", "alpha_skip"])
+    "flat_tile_rows", "term_T_none", "alpha_skip", *RAY_MODES])
 def test_frame_reads_nothing_back(scene, case):
     """(f) Given tensors, the budgeted flat frame up to its fetch
     (``_render_frame_async``), with the grid given or built by
@@ -245,19 +260,27 @@ def test_frame_reads_nothing_back(scene, case):
     alone, make no host read (after one eager frame, which makes the
     cached constants); so does the frame in each flat mode that a CUDA
     model captures (shared-corner eval, tiled rows, no transmittance cut,
-    the alpha skip), with the grid given."""
+    the alpha skip) and in each ray-bundle mode (windows, dense, the
+    probed dense march, uncached: ``_rays_frame`` at its ray and cell
+    budgets), with the grid given. The ray-bundle frame equals
+    ``render_rays_frame``'s exact-count frame."""
     knobs = {"shared_corner_eval": dict(shared_corner_eval=True),
              "flat_tile_rows": dict(flat_tile_rows=True),
              "term_T_none": dict(term_T=None),
-             "alpha_skip": dict(alpha_skip=0.01)}.get(case, {})
+             "alpha_skip": dict(alpha_skip=0.01),
+             **RAY_MODES}.get(case, {})
     eval_grid = case if case in ("smpl_shell", "density") else "given"
     av = _avatar(scene["pnp"], eval_grid="smpl_shell" if eval_grid
                  == "given" else eval_grid, **knobs)
     state, grid = scene["state"], scene["grids"][0]
-    b = {k: torch.as_tensor(np.asarray(v)) for k, v in
-         scene["seq"][0][1].items()}
+    batch = scene["seq"][0][1]
+    if case in RAY_MODES:
+        batch = _with_rays(batch)
+    b = {k: torch.as_tensor(np.asarray(v)) for k, v in batch.items()}
     given = grid if eval_grid == "given" else None
-    want = av.render_frame(state, b, grid=given, image_shape=(H, H))
+    want = (av.render_rays_frame(state, b, grid, (H, H)) if case
+            in RAY_MODES else av.render_frame(state, b, grid=given,
+                                              image_shape=(H, H)))
     with NoHostRead():
         rec = av._render_frame_async(state, b, grid=given,
                                      image_shape=(H, H))
@@ -269,6 +292,26 @@ def test_frame_reads_nothing_back(scene, case):
                        else rec["grid"].occupancy)
     out = av._finish_frame(rec)
     assert _max_gap(out, want) <= EXACT_ATOL
+    if case in RAY_MODES:
+        assert out["n_samples"] == int(want["n_samples"]) > 0
+
+
+@pytest.mark.parametrize("mode", ["flat", *RAY_MODES])
+def test_graph_true_raises_on_cpu(scene, mode):
+    """``graph=True`` (a captured frame) on a CPU model raises in the flat
+    and in each ray-bundle mode, before any frame is rendered; the
+    default (None) renders eagerly there and captures nothing."""
+    av = _avatar(scene["pnp"], **RAY_MODES.get(mode, {}))
+    state, grid = scene["state"], scene["grids"][1]
+    b = slice_tests._batch(24)
+    if mode in RAY_MODES:
+        b = _with_rays(b, 24)
+    with pytest.raises(ValueError, match="CUDA model"):
+        av.render_frame(state, b, grid=grid, image_shape=(24, 24),
+                        graph=True)
+    assert av.frame_graphs is None
+    out = av.render_frame(state, b, grid=grid, image_shape=(24, 24))
+    assert out["rgb"].shape == (24 * 24, 3) and av.frame_graphs is None
 
 
 def test_dp_overflow_on_gloo_ranks(scene, tmp_path):
