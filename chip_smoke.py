@@ -8,7 +8,8 @@ weights) and its training (the same configuration as
 points a user calls, and checks it in phases:
 
   1. device: a CUDA card is required (no CPU run); TF32 is switched off;
-  2. build: the fused field-head kernel is compiled from csrc/ with nvcc;
+  2. build: the fused field-head and the hash-encode kernels are compiled
+     from csrc/ with nvcc, one nvcc per source, both started together;
   3. kernel vs its plain PyTorch version at M = 1, 17, 1000, one pass of
      the persistent grid +- 1 and 1,000,003 rows; the kernel, the plain
      version and the library yardstick (five bf16 cuBLAS GEMMs, see
@@ -60,11 +61,18 @@ points a user calls, and checks it in phases:
      test PSNR/SSIM from ``results.txt``), ``fit`` with
      ``SNARF_NGP_fitting`` (``w_lpips=0``, 2 epochs) on a copy of the
      sequence (every frame exported to ``poses/train.npz``, finite losses,
-     the depth term logged), ``animate`` at 540 px; then ``hash_encode``
-     (plain PyTorch, not a TPU kernel) timed forward and forward plus
-     backward on the largest call of a training step and of an animate
-     frame, with its device launches per call and its byte bound, and the
-     committed JAX NGP golden frame (48 px), PSNR-bounded;
+     the depth term logged), ``animate`` at 540 px, each run launching
+     the hash-encode kernel (``csrc/hash_encode.cu``, counted per path);
+     then the kernel against its plain version (``hash_encode_ref``,
+     ``hash_encode_backward_ref``) at ENCODE_CHECK_N points with boundary,
+     lattice and out-of-range rows (features ENCODE_FEAT_TOL, gradients
+     ENCODE_GRAD_RTOL), its deterministic backward bit-identical on two
+     runs; on the largest call of a training step and of an animate
+     frame, the kernel held against its plain version on those points
+     (same tolerances) and then both timed in turns, forward and forward
+     plus backward (the deterministic backward too), with their device
+     launches per call and the byte bound; and the committed JAX
+     NGP golden frame (48 px), PSNR-bounded;
  13. the in-the-wild demo (``bash/run-neuman-demo.sh``) on a copy of phase
      11's sequence read as ``dataset=custom/video``, made to look like a
      preprocessed video first (the toy body written as
@@ -80,6 +88,7 @@ points a user calls, and checks it in phases:
      exported, both patch terms finite, starting from
      ``poses_optimized.npz``, the SMPL parameters moved),
      ``train --config-name demo sampler.dilate=8`` on the fitted poses
+     (the fit and the train each launching the hash-encode kernel)
      (per-frame smpl_init grids (F, 64, 64, 64), each partly occupied,
      the seeded stack held by the 500-step latch, val PSNR above an
      all-white frame's; ms/step, peak memory), ``novel_view`` and
@@ -135,10 +144,13 @@ points a user calls, and checks it in phases:
      ``train_multi_step`` in groups of 4 on graphs, from one state and one
      seed, bit-equal under PyTorch's deterministic algorithms (where a
      capture refuses that mode: the default mode, no further apart than
-     two eager runs; the mode is printed); then, per mode and step kind
+     two eager runs; the mode is printed; the NGP and demo graph runs
+     must launch the hash-encode kernel); then, per mode and step kind
      (grid update, plain), warm ms/step, one profiled step's device
-     kernels, busy share and host launch calls, peak memory, and the
-     graphs captured with their capture time;
+     kernels, busy share and host launch calls, peak memory, the
+     hash-encode kernels' ms and the four kernels with the most ms in
+     that step, and the graphs captured with their capture time; the NGP
+     plain step beside its times with the plain PyTorch encode;
  17. the flat frame as JAX's one program: phase 4's avatar at 540 px, the
      8-frame turntable and a 6-pose ``animate`` sequence (each pose's own
      grid and bake), first eager at exact counts (``render_stream``
@@ -187,16 +199,19 @@ points a user calls, and checks it in phases:
 Any failed check, a spawned rank's non-zero exit or a spawned run past
 its time limit exits non-zero. The last stdout line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``
-and the line before it lists the kernels, with the kernel's launches in
+and the line before it lists the kernels: the hash encode with its
+launches on each NGP path (phases 12, 13 and 16) and its times at the
+training call's points, and the head with its launches in
 each path (turntable, training, val render, phase 11's CLI train run,
 Trainer validation, Trainer test, animate and novel_view, and phase 13's
 SMPL-deformer voxel-triplane frame, phase 14's eval modes, phase
 15's ranks and paths, phase 16's flagship graph run, phase 17's
 frame graphs, phase 18's DP, multi-subject and test-grid graphs and
 phase 19's ray-bundle and ``make_dp_render`` graphs; the
-NGP and triplane paths evaluate the fp32 head and launch no kernel). A captured step's or frame's launches are counted
-once per replay, and the eager warm-up before each capture launches the
-head once more. ``--profile DIR`` also
+NGP and triplane paths evaluate the fp32 head and launch no head
+kernel). A captured step's or frame's launches are counted once per
+replay, and the eager warm-up before each capture launches the kernels
+once more. ``--profile DIR`` also
 writes torch.profiler summaries and traces of two steady-state frames and
 of one grid-update step plus three plain training steps to DIR.
 
@@ -245,6 +260,14 @@ CLI_EPOCHS, CLI_POSES, CLI_TURNTABLE = 5, 6, 8
 # phase 12: the NGP golden's floor, fit's epochs, the default table's bytes
 NGP_GOLDEN_MIN_DB, FIT_EPOCHS = 35.0, 2
 NGP_TABLE_BYTES = 16 * 2 ** 19 * 2 * 4
+# the hash-encode kernel against its plain version: features absolute
+# (the same fp32 lerp, 8 products summed in another order), gradients
+# L2-relative (fp32 atomics sum in another order); the point counts
+# checked (2^19 is the plain version's chunk; 2^20 one training render
+# call), the timed repetitions
+ENCODE_FEAT_TOL, ENCODE_GRAD_RTOL = 1e-6, 1e-5
+ENCODE_CHECK_N = (1, 17, 2 ** 19 - 1, 2 ** 19 + 1, 2 ** 20)
+ENCODE_REPS = 15
 # phase 4's (bench.py's) render knobs; phase 14 varies the eval mode
 AVATAR_540_KW = dict(n_steps=128, k_cap=8, grid_size=64, eval_n_steps=48,
                      cache_n_cand=1, samples_per_ray=5.0,
@@ -836,15 +859,24 @@ def replay_train_golden(device) -> dict:
     return worst
 
 
-def _counted(fn):
-    """Run ``fn`` with the head's counters at 0; returns (result,
-    launches, rows) of that run."""
+def _counted(fn, kernel=None):
+    """Run ``fn`` with ``kernel``'s counters (default: the head's) at 0;
+    returns (result, launches, rows) of that run."""
     from instantavatar_torch.kernels import fused_field_head
-    fused_field_head.launches = 0
-    fused_field_head.rows = 0
+    kernel = kernel or fused_field_head
+    kernel.launches = 0
+    kernel.rows = 0
     out = fn()
     torch.cuda.synchronize()
-    return out, fused_field_head.launches, fused_field_head.rows
+    return out, kernel.launches, kernel.rows
+
+
+def _encode_counted(fn, paths: dict, path: str):
+    """``_counted`` for the hash-encode kernel; its (launches, rows) go
+    to ``paths[path]``. Returns the result."""
+    from instantavatar_torch.kernels import hash_encode_cuda
+    out, *paths[path] = _counted(fn, hash_encode_cuda)
+    return out
 
 
 def cli_overrides(seq: Path, run: Path) -> list[str]:
@@ -1083,61 +1115,234 @@ def device_busy(fn, top: int = 5) -> tuple[int, float, list]:
             sum(ms for _, ms in by_name.values()), ranked[:top])
 
 
-def encode_bound(rows: int, touched: int, backward: bool) -> float:
+def encode_bound(rows: int, touched: int, backward: bool,
+                 point_grad: bool = False) -> float:
     """Least time (ms) of ``hash_encode`` on ``rows`` points that touch
     ``touched`` distinct table rows, at the HBM rate (the FLOPs, ~1 KFLOP
     per point, take <1% of that at the fp32 rate): 12 B of points in and
     128 B of fp32 features out per point plus 8 B per touched table row;
-    with the backward also the 128 B per point of incoming gradient, the
-    12 B per point of point gradient and the dense 64 MiB table gradient
-    written once."""
+    with the backward also the 128 B per point of incoming gradient and
+    the dense 64 MiB table gradient written once, and with ``point_grad``
+    (the call asks for the points' gradient) 12 B per point of it."""
     nbytes = rows * (12 + 128) + touched * 8
     if backward:
-        nbytes += rows * (128 + 12) + NGP_TABLE_BYTES
+        nbytes += rows * 128 + NGP_TABLE_BYTES
+        if point_grad:
+            nbytes += rows * 12
     return 1e3 * nbytes / HBM_BYTES_PER_S
+
+
+def encode_inputs(n: int, seed: int, device):
+    """``n`` points at the default grid, numpy-seeded: uniform in [-0.1,
+    1.1]^3 with every fifth row (from row 1) an axis at exactly 0, every
+    fifth (from row 2) an axis at exactly 1, every fifth (from row 3) on a
+    lattice point of a random level and every fifth (from row 4) a copy of
+    row 0 whose gradient is zero (a static budget's padding); a N(0, 0.1)
+    table and an N(0, 1) gradient of the features. Returns (table, x,
+    grad) on ``device``."""
+    from instantavatar_torch.ops import HashGridConfig, level_resolutions
+    cfg = HashGridConfig()
+    res = np.array(level_resolutions(cfg))
+    g = np.random.default_rng(seed)
+    x = g.uniform(-0.1, 1.1, (n, 3)).astype(np.float32)
+    axis = g.integers(0, 3, n)
+    rows = np.arange(n)
+    x[rows[1::5], axis[1::5]] = 0.0
+    x[rows[2::5], axis[2::5]] = 1.0
+    lat = rows[3::5]
+    r = res[g.integers(0, len(res), lat.size)][:, None]
+    x[lat] = (g.integers(0, r + 1, (lat.size, 3)) / r).astype(np.float32)
+    table = g.normal(0.0, 0.1, (cfg.n_levels, cfg.table_size,
+                                cfg.n_features)).astype(np.float32)
+    grad = g.normal(size=(n, cfg.out_dim)).astype(np.float32)
+    x[4::5], grad[4::5] = x[0], 0.0
+    return tuple(torch.as_tensor(a, device=device) for a in (table, x, grad))
+
+
+def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a.double() - b.double()).norm()
+                 / b.double().norm().clamp_min(1e-30))
+
+
+def encode_check(dev, n: int, seed: int, deterministic: bool = False,
+                 keep: bool = False) -> dict:
+    """The hash-encode kernel, forward and backward (atomic, or the
+    sorted run sum under deterministic algorithms), against
+    ``hash_encode_ref`` and ``hash_encode_backward_ref`` on
+    ``encode_inputs(n, seed)``: the features' max abs error, the table's
+    and the points' gradients' L2-relative errors, the kernel's launches;
+    with ``keep`` also the kernel's outputs."""
+    from instantavatar_torch.kernels import hash_encode_cuda
+    from instantavatar_torch.ops import (HashGridConfig,
+                                         hash_encode_backward_ref,
+                                         hash_encode_ref, level_resolutions)
+    cfg = HashGridConfig()
+    table, x, grad = encode_inputs(n, seed, dev)
+    tt, xt = table.clone().requires_grad_(), x.clone().requires_grad_()
+    launches = hash_encode_cuda.launches
+    torch.use_deterministic_algorithms(deterministic)
+    try:
+        out = hash_encode_cuda(tt, xt, level_resolutions(cfg))
+        out.backward(grad)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    torch.cuda.synchronize()
+    res = {"launches": hash_encode_cuda.launches - launches}
+    with torch.no_grad():
+        ref = hash_encode_ref(table, x, cfg)
+        g_tab, g_x = hash_encode_backward_ref(table, x, grad, cfg)
+        res["finite"] = bool(torch.isfinite(out).all())
+        res["feat_err"] = float((out - ref).abs().max())
+        res["grad_table_rel"] = _rel(tt.grad, g_tab)
+        res["grad_x_rel"] = _rel(xt.grad, g_x)
+    if keep:
+        res.update(out=out.detach(), grad_table=tt.grad, grad_x=xt.grad)
+    return res
+
+
+def encode_checks(dev) -> float:
+    """The kernel against its plain version at ENCODE_CHECK_N (default
+    mode), and the deterministic backward bit-identical on two runs at
+    the largest; returns the features' largest max|diff|."""
+    worst = 0.0
+    for n in ENCODE_CHECK_N:
+        r = encode_check(dev, n, seed=n)
+        print(f"[encode] kernel vs plain, {n} points (boundary, lattice and "
+              f"out-of-range rows): features max|diff| {r['feat_err']:.2e} "
+              f"(tol {ENCODE_FEAT_TOL}), table gradient "
+              f"{r['grad_table_rel']:.2e} and point gradient "
+              f"{r['grad_x_rel']:.2e} L2-relative (tol {ENCODE_GRAD_RTOL}), "
+              f"{r['launches']} launches")
+        check(r["finite"] and r["feat_err"] <= ENCODE_FEAT_TOL
+              and r["grad_table_rel"] <= ENCODE_GRAD_RTOL
+              and r["grad_x_rel"] <= ENCODE_GRAD_RTOL and r["launches"] == 3,
+              f"the hash-encode kernel disagrees at {n} points")
+        worst = max(worst, r["feat_err"])
+    n = ENCODE_CHECK_N[-1]
+    one, two = (encode_check(dev, n, seed=1, deterministic=True, keep=True)
+                for _ in range(2))
+    same = all(torch.equal(one[k], two[k])
+               for k in ("out", "grad_table", "grad_x"))
+    print(f"[encode] deterministic backward, {n} points: table gradient "
+          f"{one['grad_table_rel']:.2e} L2-relative from the plain version, "
+          f"{one['launches']} launches; two runs bit-identical: {same}")
+    check(same and one["grad_table_rel"] <= ENCODE_GRAD_RTOL
+          and one["launches"] == 5,
+          "the deterministic hash-encode backward is not reproducible")
+    return worst
+
+
+def encode_path_check(path: str, table: torch.Tensor, x: torch.Tensor,
+                      ct: torch.Tensor, cfg) -> float:
+    """The kernel (``hash_encode`` on the card) against ``hash_encode_ref``
+    and ``hash_encode_backward_ref`` on one path's own points and the
+    features' gradient that ``encode_timing`` times: features within
+    ENCODE_FEAT_TOL, the table's and the points' gradients within
+    ENCODE_GRAD_RTOL L2-relative. Returns the features' max|diff|."""
+    from instantavatar_torch.ops import (hash_encode,
+                                         hash_encode_backward_ref,
+                                         hash_encode_ref)
+    tt, xt = table.clone().requires_grad_(), x.clone().requires_grad_()
+    out = hash_encode(tt, xt, cfg)
+    out.backward(ct)
+    with torch.no_grad():
+        finite = bool(torch.isfinite(out).all())
+        feat = float((out - hash_encode_ref(table, x, cfg)).abs().max())
+        g_tab, g_x = hash_encode_backward_ref(table, x, ct, cfg)
+        tab_rel, x_rel = _rel(tt.grad, g_tab), _rel(xt.grad, g_x)
+    del out, tt, xt, g_tab, g_x
+    print(f"[encode] {path}: kernel vs plain on the path's {x.shape[0]} "
+          f"points: features max|diff| {feat:.2e} (tol {ENCODE_FEAT_TOL}), "
+          f"table gradient {tab_rel:.2e} and point gradient {x_rel:.2e} "
+          f"L2-relative (tol {ENCODE_GRAD_RTOL})")
+    check(finite and feat <= ENCODE_FEAT_TOL and tab_rel <= ENCODE_GRAD_RTOL
+          and x_rel <= ENCODE_GRAD_RTOL,
+          f"the hash-encode kernel disagrees on {path}'s points")
+    return feat
 
 
 def encode_timing(dev, path_points: dict[str, torch.Tensor]) -> dict:
     """The hash encode on each path's largest call (its normalized
-    points, as the field encoded them; random table): forward, and
-    forward plus backward, median of 15 (CUDA events), its device
-    launches per call (torch.profiler) and its bound."""
-    from instantavatar_torch.ops import HashGridConfig, hash_encode, hash_slots
+    points, as the field encoded them; random table), after
+    ``encode_checks`` and, on the same points, ``encode_path_check``: the
+    kernel and the plain version (``hash_encode_ref``) in turns, forward
+    and forward plus backward (the kernel's deterministic backward too),
+    median of ENCODE_REPS (CUDA events), their device launches per call
+    (torch.profiler) and the bound. The backward's gradient is zero on
+    padding rows, as in a training step."""
+    from instantavatar_torch.ops import (HashGridConfig, hash_encode,
+                                         hash_encode_ref, hash_slots)
     cfg = HashGridConfig()
+    out = {"max_err": encode_checks(dev)}
     g = np.random.default_rng(3)
     table = torch.as_tensor(g.normal(0.0, 0.1, (cfg.n_levels, cfg.table_size,
                                                 cfg.n_features))
                             .astype(np.float32), device=dev)
-    out = {}
     for path, x in path_points.items():
         rows = x.shape[0]
         touched = int(torch.unique(
             (hash_slots(x, cfg) + torch.arange(cfg.n_levels, device=dev)
              [:, None] * cfg.table_size).reshape(-1)).numel())
         tab = table.clone().requires_grad_()
-        ct = torch.ones((rows, cfg.out_dim), device=dev)
+        # the features' gradient: ones, but zero on a point that repeats
+        # the point before it (a static budget's padding, the ray's first
+        # sample again, whose gradient the step masks to zero)
+        pad = torch.zeros(rows, dtype=torch.bool, device=dev)
+        pad[1:] = (x[1:] == x[:-1]).all(-1)
+        ct = (~pad).float()[:, None].expand(rows, cfg.out_dim).contiguous()
+        out["max_err"] = max(out["max_err"],
+                             encode_path_check(path, table, x, ct, cfg))
 
-        def fwd():
-            with torch.no_grad():
-                hash_encode(table, x, cfg)
+        def fwd(fn):
+            def run():
+                with torch.no_grad():
+                    fn(table, x, cfg)
+            return run
 
-        def fwd_bwd():
-            tab.grad = None
-            hash_encode(tab, x, cfg).backward(ct)
-        res = {"rows": rows, "touched_rows": touched}
-        for name, fn, bwd in (("fwd", fwd, False), ("fwd_bwd", fwd_bwd, True)):
-            for _ in range(3):
-                fn()
-            launches = device_launches(fn)
-            ms = statistics.median(cuda_ms(fn, 15))
-            bound = encode_bound(rows, touched, bwd)
-            res.update({f"{name}_ms": ms, f"{name}_launches": launches,
-                        f"{name}_bound_ms": bound})
-            print(f"[encode] {path}: {rows} points ({touched} distinct table "
-                  f"rows), {name}: {ms:.4f} ms (median of 15, CUDA events), "
-                  f"{launches} device launches per call (torch.profiler), "
-                  f"bound {bound:.4f} ms set by bytes, "
-                  f"{100 * bound / ms:.1f}% of it")
+        def fwd_bwd(fn, deterministic=False):
+            def run():
+                tab.grad = None
+                torch.use_deterministic_algorithms(deterministic)
+                try:
+                    fn(tab, x, cfg).backward(ct)
+                finally:
+                    torch.use_deterministic_algorithms(False)
+            return run
+        res = {"rows": rows, "touched_rows": touched,
+               "padded_rows": int(pad.sum())}
+        print(f"[encode] {path}: {rows} points, {res['padded_rows']} of them "
+              f"a repeat of the point before (gradient zero in the timed "
+              f"backward)")
+        for name, fns, bwd in (
+                ("fwd", {"kernel": fwd(hash_encode),
+                         "plain": fwd(hash_encode_ref)}, False),
+                ("fwd_bwd", {"kernel": fwd_bwd(hash_encode),
+                             "plain": fwd_bwd(hash_encode_ref),
+                             "kernel_det": fwd_bwd(hash_encode, True)},
+                 True)):
+            times = {k: [] for k in fns}
+            for fn in fns.values():
+                for _ in range(2):
+                    fn()
+            for i in range(ENCODE_REPS):   # in turns, the order alternating
+                for k in (list(fns) if i % 2 == 0 else list(fns)[::-1]):
+                    times[k] += cuda_ms(fns[k], 1)
+            bound = encode_bound(rows, touched, bwd, x.requires_grad)
+            res[f"{name}_bound_ms"] = bound
+            for k, fn in fns.items():
+                ms = statistics.median(times[k])
+                launches = device_launches(fn)
+                res[f"{name}_{k}_ms"] = ms
+                res[f"{name}_{k}_launches"] = launches
+                print(f"[encode] {path}: {rows} points ({touched} distinct "
+                      f"table rows), {name} {k}: {ms:.4f} ms (median of "
+                      f"{ENCODE_REPS}, CUDA events, in turns), {launches} "
+                      f"device launches per call (torch.profiler), bound "
+                      f"{bound:.4f} ms set by bytes, {100 * bound / ms:.1f}% "
+                      f"of it")
+            print(f"[encode] {path}: {name} kernel "
+                  f"{res[f'{name}_plain_ms'] / res[f'{name}_kernel_ms']:.1f}x "
+                  f"faster than the plain version")
         out[path] = res
     return out
 
@@ -1156,16 +1361,16 @@ def ngp_phase(dev, work: Path) -> dict:
     seq = work / "seq"
     run = work / "ngp_run"
     over = cli_overrides(seq, run)
-    res = {}
+    res, paths = {}, {}   # paths: the encode kernel's (launches, rows)
 
     # -- train ----------------------------------------------------------------
     calls, train_x, stop = _count_encode(steps_only=True)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    trainer, state = train.main(["--config-name", "SNARF_NGP",
-                                 f"train.max_epochs={CLI_EPOCHS}",
-                                 f"train.check_val_every_n_epoch={CLI_EPOCHS}",
-                                 *over])
+    trainer, state = _encode_counted(lambda: train.main(
+        ["--config-name", "SNARF_NGP", f"train.max_epochs={CLI_EPOCHS}",
+         f"train.check_val_every_n_epoch={CLI_EPOCHS}", *over]),
+        paths, "ngp_train_cli")
     torch.cuda.synchronize()
     stop()
     res["train_cli_s"] = time.perf_counter() - t0
@@ -1209,8 +1414,8 @@ def ngp_phase(dev, work: Path) -> dict:
     # -- refine -----------------------------------------------------------
     del trainer, state   # a CLI's model, and its graphs' memory, go with it
     t0 = time.perf_counter()
-    rtrainer, rstate, test_m = eval_cli.main(["--config-name",
-                                              "SNARF_NGP_refine", *over])
+    rtrainer, rstate, test_m = _encode_counted(lambda: eval_cli.main(
+        ["--config-name", "SNARF_NGP_refine", *over]), paths, "ngp_refine")
     torch.cuda.synchronize()
     res["refine_cli_s"] = time.perf_counter() - t0
     rsteps = rtrainer.max_epochs * CLI_TEST
@@ -1243,10 +1448,10 @@ def ngp_phase(dev, work: Path) -> dict:
     seq_fit = work / "seq_fit"
     shutil.copytree(seq, seq_fit)
     t0 = time.perf_counter()
-    ftrainer, fstate, poses = fit.main(
+    ftrainer, fstate, poses = _encode_counted(lambda: fit.main(
         ["--config-name", "SNARF_NGP_fitting",
          f"train.max_epochs={FIT_EPOCHS}",
-         *cli_overrides(seq_fit, work / "fit_run")])
+         *cli_overrides(seq_fit, work / "fit_run")]), paths, "ngp_fit")
     torch.cuda.synchronize()
     res["fit_cli_s"] = time.perf_counter() - t0
     fsteps = FIT_EPOCHS * CLI_TRAIN
@@ -1273,9 +1478,9 @@ def ngp_phase(dev, work: Path) -> dict:
     # -- animate ----------------------------------------------------------
     del ftrainer, fstate
     calls, anim_x, stop = _count_encode()
-    anim = animate.main(["--config-name", "SNARF_NGP",
-                         f"+pose_sequence={work / 'poses.npz'}",
-                         "+render_downscale=2", *over])
+    anim = _encode_counted(lambda: animate.main(
+        ["--config-name", "SNARF_NGP", f"+pose_sequence={work / 'poses.npz'}",
+         "+render_downscale=2", *over]), paths, "ngp_animate")
     stop()
     res["animate_ms_per_frame"] = 1e3 * anim["render_s"] / anim["frames"]
     res["animate_png_ms_per_frame"] = 1e3 * anim["png_s"] / anim["frames"]
@@ -1298,13 +1503,13 @@ def ngp_phase(dev, work: Path) -> dict:
     enc = encode_timing(dev, {"train_step_call": train_x["x"],
                               "animate_frame_call": anim_x["x"]})
     t = enc["train_step_call"]
-    per_row_fwd = t["fwd_ms"] / t["rows"]
-    per_row_fb = t["fwd_bwd_ms"] / t["rows"]
+    per_row_fwd = t["fwd_kernel_ms"] / t["rows"]
+    per_row_fb = t["fwd_bwd_kernel_ms"] / t["rows"]
     te = res["train_encode"]
     step_enc = (per_row_fb * te["grad_rows"]
                 + per_row_fwd * (te["rows"] - te["grad_rows"])) / steps
     a = enc["animate_frame_call"]
-    frame_enc = a["fwd_ms"] / a["rows"] * res["animate_encode_rows"]
+    frame_enc = a["fwd_kernel_ms"] / a["rows"] * res["animate_encode_rows"]
     res["encode"] = enc
     res["encode_ms_per_step"] = step_enc
     res["encode_ms_per_frame"] = frame_enc
@@ -1324,7 +1529,18 @@ def ngp_phase(dev, work: Path) -> dict:
           f"{gold['psnr']:.1f} dB (bound {NGP_GOLDEN_MIN_DB}), max|alpha "
           f"diff| {np.abs(gold['alpha'] - gold['golden_alpha']).max():.3e}")
     check(gold["psnr"] >= NGP_GOLDEN_MIN_DB, "the NGP golden frame disagrees")
+    res["encode_paths"] = _encode_paths_checked("ngp", paths)
     return res
+
+
+def _encode_paths_checked(tag: str, paths: dict) -> dict:
+    """Print each path's hash-encode kernel launches and points per
+    launch; every path must have launched it."""
+    for path, (launches, rows) in paths.items():
+        print(f"[{tag}] {path}: hash-encode kernel launches {launches}, "
+              f"points per launch {rows / max(launches, 1):.0f}")
+        check(launches > 0, f"{path} never launched the hash-encode kernel")
+    return paths
 
 
 def knn_bound(M: int, V: int) -> tuple[float, str]:
@@ -1664,10 +1880,11 @@ def demo_phase(dev, work: Path) -> dict:
         lambda pts, verts, *_: ((pts.shape[0], verts.shape[0]), pts),
         steps_only=True)
     t0 = time.perf_counter()
-    ftr, fstate, poses = fit.main(
+    enc_paths = {}   # the encode kernel's (launches, rows) per path
+    ftr, fstate, poses = _encode_counted(lambda: fit.main(
         ["--config-name", "SNARF_NGP_fitting", *data, "deformer=smpl",
          f"train.max_epochs={FIT_EPOCHS}",
-         *cli_overrides(seq, work / "demo_fit")])
+         *cli_overrides(seq, work / "demo_fit")]), enc_paths, "demo_fit")
     torch.cuda.synchronize()
     stop()
     res["fit_cli_s"] = time.perf_counter() - t0
@@ -1709,10 +1926,11 @@ def demo_phase(dev, work: Path) -> dict:
     over = [*data, *cli_overrides(seq, run)]
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    trainer, state = train.main(
+    trainer, state = _encode_counted(lambda: train.main(
         ["--config-name", "demo", "sampler.dilate=8",
          f"train.max_epochs={CLI_EPOCHS}",
-         f"train.check_val_every_n_epoch={CLI_EPOCHS}", *over])
+         f"train.check_val_every_n_epoch={CLI_EPOCHS}", *over]),
+        enc_paths, "demo_train")
     torch.cuda.synchronize()
     res["train_cli_s"] = time.perf_counter() - t0
     steps = CLI_EPOCHS * CLI_TRAIN
@@ -1818,6 +2036,7 @@ def demo_phase(dev, work: Path) -> dict:
     check(bool(torch.isfinite(out["rgb"]).all()) and 0.01 < cover < 0.95,
           "the SMPL-deformer voxel-triplane frame is not plausible")
     res["paths"] = {"smpl_voxel_frame": (launches, rows)}
+    res["encode_paths"] = _encode_paths_checked("demo", enc_paths)
     return res
 
 
@@ -2444,7 +2663,9 @@ def _run_steps(avatar, make_state, batches: list, graph: bool) -> list:
 def _profile_step(fn) -> dict:
     """One call of ``fn`` under torch.profiler: device kernels (and
     copies), their summed ms, host launch calls, the profiled wall ms
-    and the busy share."""
+    and the busy share; the ms of the hash-encode kernels
+    (``csrc/hash_encode.cu``'s ``encode_*``) and the four kernel names
+    with the most ms, each with (count, ms)."""
     from torch.profiler import ProfilerActivity, profile as torch_profile
     torch.cuda.synchronize()
     with torch_profile(activities=[ProfilerActivity.CPU,
@@ -2457,9 +2678,16 @@ def _profile_step(fn) -> dict:
     dev_ev = [e for e in ev
               if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.time_range.elapsed_us() for e in dev_ev) / 1e3
+    by_name: dict[str, tuple[int, float]] = {}
+    for e in dev_ev:
+        n, ms = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, ms + e.time_range.elapsed_us() / 1e3)
     return {"kernels": len(dev_ev), "busy_ms": busy, "profiled_ms": wall,
             "busy_share": busy / wall,
-            "host_launches": sum(1 for e in ev if e.name in LAUNCH_APIS)}
+            "host_launches": sum(1 for e in ev if e.name in LAUNCH_APIS),
+            "encode_ms": sum(ms for k, (_, ms) in by_name.items()
+                             if "encode_" in k),
+            "top": sorted(by_name.items(), key=lambda kv: -kv[1][1])[:4]}
 
 
 def _timed_steps(avatar, state, batch, graph: bool, update: bool,
@@ -2510,13 +2738,13 @@ def graph_check(name: str, avatar, make_state, batches: list) -> dict:
     bit-equal under deterministic algorithms (or, where capture refuses
     that mode, no further apart than two eager runs in the default mode);
     then each mode timed per step kind."""
-    from instantavatar_torch.kernels import fused_field_head
+    from instantavatar_torch.kernels import fused_field_head, hash_encode_cuda
+    kernels = (fused_field_head, hash_encode_cuda)
     mode = "deterministic"
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
         eager = _run_steps(avatar, make_state, batches, False)
-        launches0 = fused_field_head.launches
-        rows0 = fused_field_head.rows
+        before = [(k.launches, k.rows) for k in kernels]
         try:
             graph = _run_steps(avatar, make_state, batches, True)
         except RuntimeError as e:
@@ -2528,13 +2756,12 @@ def graph_check(name: str, avatar, make_state, batches: list) -> dict:
         torch.use_deterministic_algorithms(False)
     if mode == "default":
         eager = _run_steps(avatar, make_state, batches, False)
-        launches0 = fused_field_head.launches
-        rows0 = fused_field_head.rows
+        before = [(k.launches, k.rows) for k in kernels]
         graph = _run_steps(avatar, make_state, batches, True)
-    head = (fused_field_head.launches - launches0,
-            fused_field_head.rows - rows0)
+    head, enc = ((k.launches - n, k.rows - r)
+                 for k, (n, r) in zip(kernels, before))
     gap = _gap(eager, graph)
-    res = {"mode": mode, "gap": gap, "head": head}
+    res = {"mode": mode, "gap": gap, "head": head, "encode": enc}
     if mode == "deterministic":
         check(gap == 0.0, f"{name}: {GRAPH_STEPS} graph steps differ from "
                           f"the eager ones by {gap:.3e} under deterministic "
@@ -2550,7 +2777,8 @@ def graph_check(name: str, avatar, make_state, batches: list) -> dict:
           f"{gap:.3e}"
           + (f" (eager vs eager {res['eager_gap']:.3e})" if "eager_gap" in res
              else "")
-          + f"; fused-head launches in the graph run {head[0]}")
+          + f"; fused-head launches in the graph run {head[0]}, "
+            f"hash-encode kernel launches {enc[0]}")
     state, batch = make_state(), batches[0]
     g = avatar.step_graphs
     c0, s0 = g.captures, g.capture_seconds
@@ -2563,6 +2791,11 @@ def graph_check(name: str, avatar, make_state, batches: list) -> dict:
                 "_update" if update else "_plain")
             res[kind] = t
             print(_timing_line(f"[graph] {name}", kind, t))
+            print(f"[graph] {name} {kind}, the profiled step's device time: "
+                  f"hash-encode kernels {t['encode_ms']:.2f} of "
+                  f"{t['busy_ms']:.2f} ms; the largest: " + "; ".join(
+                      f"{k[:70]} x{n} {ms:.2f} ms"
+                      for k, (n, ms) in t["top"]))
     res["captures"], res["capture_s"] = g.captures, g.capture_seconds
     print(f"[graph] {name}: {g.captures} graphs captured in all, "
           f"{g.capture_seconds:.2f} s of capture (warm-ups included; "
@@ -2602,7 +2835,16 @@ def graph_phase(dev, work: Path) -> dict:
         ds = tr.dm.trainset
         res[name] = graph_check(name, tr.avatar, tr.init_state,
                                 [ds[i % len(ds)] for i in range(GRAPH_STEPS)])
+    for kind in ("eager_plain", "graph_plain"):
+        t = res["ngp"][kind]
+        print(f"[graph] ngp {kind}: {t['ms']:.2f} ms/step, peak memory "
+              f"{t['peak_mib']:.1f} MiB (with the plain PyTorch encode, "
+              f"PERF.md: eager 90.11 / 70.14, graphs 45.78 / 46.25 "
+              f"ms/step, 8002.2 MiB on graphs)")
     res["paths"] = {"graph_vs_eager_flagship": res["flagship"]["head"]}
+    res["encode_paths"] = _encode_paths_checked(
+        "graph", {f"graph_{n}": res[n]["encode"]
+                  for n in ("ngp", "demo_fit", "demo_train")})
     return res
 
 
@@ -3301,7 +3543,8 @@ def main(profile_dir: Path | None) -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     from instantavatar_torch.data.rays import make_ray_basis
-    from instantavatar_torch.kernels import (build_library, fused_field_head,
+    from instantavatar_torch.kernels import (build_hash_library,
+                                             build_library, fused_field_head,
                                              fused_field_head_ref)
     from instantavatar_torch.train import RenderSession
     dev = torch.device("cuda", 0)
@@ -3315,13 +3558,20 @@ def main(profile_dir: Path | None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    # -- 2. build -----------------------------------------------------------
-    info = build_library()
-    print(f"[build] {info.path.name}: {info.seconds:.1f} s "
-          f"(reused={info.reused})")
-    for line in info.log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[build] {line.strip()}")
+    # -- 2. build: one nvcc per kernel source, all started together ---------
+    from concurrent.futures import ThreadPoolExecutor
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        builds = [f.result() for f in [pool.submit(build_library),
+                                       pool.submit(build_hash_library)]]
+    print(f"[build] both kernel libraries in "
+          f"{time.perf_counter() - t0:.1f} s (in parallel)")
+    for info in builds:
+        print(f"[build] {info.path.name}: {info.seconds:.1f} s "
+              f"(reused={info.reused})")
+        for line in info.log.splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                print(f"[build] {line.strip()}")
 
     # -- 3. kernel vs plain, the yardsticks ----------------------------------
     head = kernel_phase(dev)
@@ -3458,7 +3708,7 @@ def main(profile_dir: Path | None) -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as work:
         cli = cli_phase(dev, Path(work))
         # -- 12. the confs' default network -------------------------------
-        ngp_phase(dev, Path(work))
+        ngp = ngp_phase(dev, Path(work))
         # -- 13. the in-the-wild demo -------------------------------------
         demo = demo_phase(dev, Path(work))
         refine_full_phase(dev)
@@ -3471,7 +3721,8 @@ def main(profile_dir: Path | None) -> int:
                                  Path(work))["paths"],
                **multi_phase(dev, Path(work), cli)["paths"]}
         # -- 16. the captured step against the eager one ---------------
-        par.update(graph_phase(dev, Path(work))["paths"])
+        graphs = graph_phase(dev, Path(work))
+        par.update(graphs["paths"])
         # -- 18.1, 18.2: the DP and multi-subject steps on graphs -------
         par.update(dp_graph_check(dev, Path(work))["paths"])
         par.update(multi_graph_check(dev)["paths"])
@@ -3498,6 +3749,11 @@ def main(profile_dir: Path | None) -> int:
     print(f"[smoke] all phases ran in {time.perf_counter() - t_start:.1f} s "
           f"(the kernel's build included)")
 
+    enc_by_path = {**ngp["encode_paths"], **demo["encode_paths"],
+                   **graphs["encode_paths"]}
+    t = ngp["encode"]["train_step_call"]
+    print(f"[smoke] hash-encode kernel launches by path "
+          f"{ {k: v[0] for k, v in enc_by_path.items()} }")
     print(json.dumps({"kernels": [{
         "name": "fused_field_head", "route": "cuda",
         "source": "instantavatar_torch/csrc/fused_head.cu",
@@ -3508,7 +3764,22 @@ def main(profile_dir: Path | None) -> int:
         "max_abs_err": max(head["max_err"], path_err),
         "ms": head["kernel_ms"],
         "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
-        "bound_by": head["bound_by"], "library_ms": head["library_ms"]}]}))
+        "bound_by": head["bound_by"], "library_ms": head["library_ms"]}, {
+        "name": "hash_encode", "route": "cuda",
+        "source": "instantavatar_torch/csrc/hash_encode.cu",
+        "replaces": "instantavatar_tpu/ops/hashgrid.py:82",
+        "launches": sum(v[0] for v in enc_by_path.values()),
+        "launches_by_path": {k: v[0] for k, v in enc_by_path.items()},
+        "rows_per_launch_by_path": {k: v[1] / v[0]
+                                    for k, v in enc_by_path.items()},
+        "max_abs_err": ngp["encode"]["max_err"],
+        "points": t["rows"],
+        "ms": t["fwd_bwd_kernel_ms"], "plain_ms": t["fwd_bwd_plain_ms"],
+        "bound_ms": t["fwd_bwd_bound_ms"], "bound_by": "bytes",
+        "library_ms": None,
+        "fwd_ms": t["fwd_kernel_ms"], "fwd_plain_ms": t["fwd_plain_ms"],
+        "fwd_bound_ms": t["fwd_bound_ms"],
+        "deterministic_ms": t["fwd_bwd_kernel_det_ms"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

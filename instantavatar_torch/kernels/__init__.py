@@ -1,5 +1,10 @@
-from .fused_head import (BuildInfo, build_library, fused_field_head,
+from .build import BuildInfo
+from .counters import COUNTED, add_replay, captured_counts
+from .fused_head import (build_library, fused_field_head,
                          fused_field_head_ref, head_cost, head_wave_rows)
+from .hash_encode import build_hash_library, hash_encode_cuda
 
 __all__ = ["BuildInfo", "build_library", "fused_field_head",
-           "fused_field_head_ref", "head_cost", "head_wave_rows"]
+           "fused_field_head_ref", "head_cost", "head_wave_rows",
+           "build_hash_library", "hash_encode_cuda", "COUNTED",
+           "add_replay", "captured_counts"]

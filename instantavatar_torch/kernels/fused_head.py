@@ -9,7 +9,8 @@ the call raises. There is no silent fallback from one to the other.
 
 The kernel library is built at first use with ``nvcc`` (sm_90a) from the
 sources in this package into ``instantavatar_torch/_build/``, keyed by a
-hash of the sources and flags, so later processes reuse it.
+hash of the sources and flags, so later processes reuse it
+(``kernels/build.py``).
 
 Launch configuration: a persistent grid of (SMs x resident blocks) blocks
 of 4 warps, each warp walking 32-row tiles with a grid stride; the grid
@@ -20,24 +21,19 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import time
 from pathlib import Path
-from typing import NamedTuple
 
 import torch
+
+from .build import BuildInfo, nvcc_build
+# read by tools/head_kernel_anatomy.py, which builds this source its own way
+from .build import NVCC_FLAGS, nvcc as _nvcc  # noqa: F401
 
 __all__ = ["fused_field_head", "fused_field_head_ref", "build_library",
            "BuildInfo", "head_cost", "head_wave_rows"]
 
 _PKG = Path(__file__).resolve().parent.parent
 _SOURCES = (_PKG / "csrc" / "fused_head.cu",)
-_BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _SIGMA_DIMS = ((None, 64), (64, 16))           # E -> 64 -> 16
 _COLOR_DIMS = ((15, 64), (64, 64), (64, 3))    # 15 -> 64 -> 64 -> 3
@@ -47,48 +43,10 @@ _NO_GRAD_MSG = ("the fused field head is forward-only on CUDA: call it "
                 "(VoxelTriplaneField.apply(..., head=\"mlp\")), as JAX does")
 
 
-class BuildInfo(NamedTuple):
-    path: Path          # the shared library
-    seconds: float      # nvcc wall time (0.0 when reused)
-    reused: bool        # True if an identical build was found
-    log: str            # nvcc / ptxas output (-Xptxas -v), empty if reused
-    lib: ctypes.CDLL
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cuda_home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-    path = Path(cuda_home) / "bin" / "nvcc"
-    if not path.exists():
-        raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, "
-                           "/usr/local/cuda/bin); the CUDA toolkit is needed "
-                           "to build the fused field head")
-    return str(path)
-
-
 @functools.lru_cache(maxsize=None)
 def build_library() -> BuildInfo:
     """Build (or reuse) and load the kernel library."""
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _SOURCES:
-        digest.update(src.read_bytes())
-    path = _BUILD_DIR / f"fused_head_{digest.hexdigest()[:16]}.so"
-    seconds, log, reused = 0.0, "", path.exists()
-    if not reused:
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _SOURCES)],
-            capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-        os.replace(tmp, path)
-    return BuildInfo(path, seconds, reused, log, _load(path))
+    return nvcc_build("fused_head", _SOURCES, _load)
 
 
 def _load(path: Path) -> ctypes.CDLL:

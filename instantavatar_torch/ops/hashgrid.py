@@ -14,15 +14,20 @@ arithmetic on CUDA, so the products are taken in int64 (the largest,
 T - 1 then keeps the same low log2(T) bits as the wrapped uint32 hash.
 Clamping, corner order and trilinear weights follow JAX exactly, in fp32.
 
-All levels are encoded at once: the slots of every (point, level,
-corner) index one flat (L * T, F) view of the table, gathered through
-``_GatherRows`` (the table's gradient is an fp32 ``index_add_``; the
-default backward of ``table[idx]`` walks duplicate indices serially).
+``hash_encode`` dispatches by device: CPU tensors run the plain version
+``hash_encode_ref``; CUDA tensors run the hand-written kernel
+(``kernels/hash_encode.py``, ``csrc/hash_encode.cu``), forward and
+backward, or the call raises. Nothing falls back from one to the other.
+
+The plain version encodes all levels at once: the slots of every (point,
+level, corner) index one flat (L * T, F) view of the table, gathered
+through ``_GatherRows`` (the table's gradient is an fp32 ``index_add_``;
+the default backward of ``table[idx]`` walks duplicate indices serially).
 Rows go through in chunks of ``chunk`` (about 3 KB of temporaries per row
 at the default config), so a 2M-row frame needs no 6 GB index tensor.
-One chunk takes about 34 device launches forward, whatever the number of
-levels; the backward to the table adds about 7 per call (69 and 76 for a
-two-chunk call on an H100).
+``hash_encode_backward_ref`` is the kernels' closed-form backward in
+plain torch: the table's gradient by ``index_add_``, and the points'
+gradient with JAX's clip derivative.
 """
 from __future__ import annotations
 
@@ -31,11 +36,13 @@ from typing import NamedTuple, Sequence
 
 import torch
 
+from ..kernels.hash_encode import hash_encode_cuda
 from ..utils.device_const import device_constant
 from .grid_sample import _gather_rows
 
 __all__ = ["HashGridConfig", "level_resolutions", "init_hash_table",
-           "hash_slots", "hash_encode"]
+           "hash_slots", "hash_encode", "hash_encode_ref",
+           "hash_encode_backward_ref"]
 
 # spatial-hash primes (Instant-NGP / Teschner et al.)
 _PRIMES = (1, 2654435761, 805459861)
@@ -93,11 +100,11 @@ def _level_constants(cfg: HashGridConfig, resolutions: Sequence[int],
 
 
 def _slots_weights(x: torch.Tensor, cfg: HashGridConfig, consts
-                   ) -> tuple[torch.Tensor, torch.Tensor]:
+                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Points (N, 3) -> per (point, level, corner) the row of the flat
     (L * T, F) table, int32 (N, L, 8), and the trilinear weight, fp32
-    (N, L, 8). Corner c = 4 i + 2 j + k takes offset (i, j, k) on (x, y,
-    z), JAX's order."""
+    (N, L, 8); and the cell fractions, fp32 (N, L, 3). Corner c = 4 i + 2
+    j + k takes offset (i, j, k) on (x, y, z), JAX's order."""
     res_f, res_i, mult, dense = consts
     L, T = cfg.n_levels, cfg.table_size
     # jnp.clip as min(max(x, 0), 1): half the gradient on the boundary
@@ -123,7 +130,7 @@ def _slots_weights(x: torch.Tensor, cfg: HashGridConfig, consts
     wx, wy, wz = w[:, :, 0], w[:, :, 1], w[:, :, 2]
     weights = (wx[..., :, None, None] * wy[..., None, :, None]
                * wz[..., None, None, :]).reshape(-1, L, 8)
-    return slots, weights
+    return slots, weights, frac
 
 
 def hash_slots(x: torch.Tensor, cfg: HashGridConfig,
@@ -132,7 +139,7 @@ def hash_slots(x: torch.Tensor, cfg: HashGridConfig,
     (..., L, 8) in [0, T) (the flat row minus l * T)."""
     res = resolutions or level_resolutions(cfg)
     consts = _level_constants(cfg, res, x.device)
-    slots, _ = _slots_weights(x.reshape(-1, 3).float(), cfg, consts)
+    slots, _, _ = _slots_weights(x.reshape(-1, 3).float(), cfg, consts)
     level0 = torch.arange(cfg.n_levels, device=x.device) * cfg.table_size
     return (slots.long() - level0[None, :, None]).reshape(
         *x.shape[:-1], cfg.n_levels, 8)
@@ -143,7 +150,21 @@ def hash_encode(table: torch.Tensor, x: torch.Tensor, cfg: HashGridConfig,
                 chunk: int = _CHUNK) -> torch.Tensor:
     """Encode points x (..., 3) in [0, 1]^3 (clamped) with the (L, T, F)
     table -> (..., L * F) features, level-major, differentiable in the
-    table and in x."""
+    table and in x. CPU tensors run ``hash_encode_ref`` (in row chunks of
+    ``chunk``); anything else runs the CUDA kernel or raises."""
+    res = resolutions or level_resolutions(cfg)
+    if table.device.type == "cpu" and x.device.type == "cpu":
+        return hash_encode_ref(table, x, cfg, res, chunk=chunk)
+    out = hash_encode_cuda(table, x.reshape(-1, 3).float().contiguous(), res)
+    return out.reshape(*x.shape[:-1], cfg.out_dim)
+
+
+def hash_encode_ref(table: torch.Tensor, x: torch.Tensor,
+                    cfg: HashGridConfig,
+                    resolutions: Sequence[int] | None = None, *,
+                    chunk: int = _CHUNK) -> torch.Tensor:
+    """The plain PyTorch version of ``hash_encode``, on any device: points
+    x (..., 3) -> (..., L * F), differentiable in the table and in x."""
     res = resolutions or level_resolutions(cfg)
     consts = _level_constants(cfg, res, x.device)
     L, F = cfg.n_levels, cfg.n_features
@@ -151,8 +172,47 @@ def hash_encode(table: torch.Tensor, x: torch.Tensor, cfg: HashGridConfig,
     xf = x.reshape(-1, 3).float()
     outs = []
     for s in range(0, max(xf.shape[0], 1), chunk):
-        slots, w = _slots_weights(xf[s:s + chunk], cfg, consts)
+        slots, w, _ = _slots_weights(xf[s:s + chunk], cfg, consts)
         rows = _gather_rows(flat, slots.reshape(-1)).reshape(*w.shape, F)
         outs.append((rows * w[..., None]).sum(2).reshape(-1, L * F))
     out = outs[0] if len(outs) == 1 else torch.cat(outs)
     return out.reshape(*x.shape[:-1], L * F)
+
+
+def hash_encode_backward_ref(table: torch.Tensor, x: torch.Tensor,
+                             grad_out: torch.Tensor, cfg: HashGridConfig,
+                             resolutions: Sequence[int] | None = None
+                             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernels' backward in closed form, plain torch, no autograd:
+    (table (L, T, F), points x (..., 3), the features' gradient (..., L *
+    F)) -> (the table's gradient (L, T, F), the points' gradient (...,
+    3)). The table's gradient is an fp32 ``index_add_`` of w_c * g per
+    corner. The points': res * sum_c dw_c / dfrac . <row_c, g> over the
+    levels, times JAX's clip derivative (1 inside (0, 1), 0.5 at exactly
+    0 or 1, 0 outside)."""
+    res = resolutions or level_resolutions(cfg)
+    consts = _level_constants(cfg, res, x.device)
+    L, T, F = cfg.n_levels, cfg.table_size, cfg.n_features
+    xf = x.reshape(-1, 3).float()
+    g = grad_out.reshape(-1, L, F).float()
+    slots, w, frac = _slots_weights(xf, cfg, consts)        # (N, L, 8)
+    rows = slots.reshape(-1).long()
+    contrib = (w[..., None] * g[:, :, None, :]).reshape(-1, F)
+    grad_table = torch.zeros((L * T, F), device=x.device).index_add_(
+        0, rows, contrib)
+    vals = table.reshape(L * T, F)[rows].reshape(*w.shape, F)
+    dot = (vals * g[:, :, None, :]).sum(-1)                  # (N, L, 8)
+    wa = torch.stack([1.0 - frac, frac], -1)                 # (N, L, 3, 2)
+    wx, wy, wz = wa[:, :, 0], wa[:, :, 1], wa[:, :, 2]        # (N, L, 2)
+    sign = torch.tensor([-1.0, 1.0], device=x.device)
+    dw = torch.stack([
+        sign[:, None, None] * wy[..., None, :, None] * wz[..., None, None, :],
+        wx[..., :, None, None] * sign[None, :, None] * wz[..., None, None, :],
+        wx[..., :, None, None] * wy[..., None, :, None] * sign[None, None, :],
+    ], -1).reshape(*w.shape, 3)                               # (N, L, 8, 3)
+    res_f = consts[0]
+    gx = ((dw * dot[..., None]).sum(2) * res_f[None, :, None]).sum(1)
+    clip_d = torch.where((xf > 0) & (xf < 1), 1.0,
+                         torch.where((xf == 0) | (xf == 1), 0.5, 0.0))
+    return (grad_table.reshape(L, T, F),
+            (gx * clip_d).reshape(x.shape))

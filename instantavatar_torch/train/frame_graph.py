@@ -45,8 +45,9 @@ A replay reads and writes fixed addresses, so ``FrameGraphs`` keeps:
     cloned after each replay, before the next can overwrite them.
 
 Before each capture the program runs once eagerly on the capture stream.
-The fused head's counters count at capture, when nothing runs: the
-launches and rows captured into each graph are added on each replay.
+The kernels' counters count at capture, when nothing runs: the
+launches and rows captured into each graph are added on each replay
+(``kernels/counters.py``).
 """
 from __future__ import annotations
 
@@ -58,7 +59,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..kernels.fused_head import fused_field_head
+from ..kernels.counters import add_replay, captured_counts
 from ..render.density_grid import DensityGridState
 from .model import TrainState
 
@@ -92,8 +93,8 @@ class _Graph:
     graph: torch.cuda.CUDAGraph
     out: dict                  # rgb, depth, alpha, counter in the pool
     counts: torch.Tensor | None  # (3,) int64 in the pool (frames)
-    launches: int              # fused-head launches and rows per replay
-    rows: int
+    launched: list             # each counted kernel's (launches, rows)
+                               # per replay (kernels/counters.py)
 
 
 def _layout(t: torch.Tensor) -> tuple:
@@ -180,15 +181,11 @@ class FrameGraphs:
         with torch.cuda.stream(self.stream):
             program(*args)   # warm-up: the program's kernels once
         torch.cuda.current_stream(self.device).wait_stream(self.stream)
-        launches, rows = fused_field_head.launches, fused_field_head.rows
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
+        with captured_counts() as launched, torch.cuda.graph(
+                graph, pool=self.pool, stream=self.stream):
             out, counts = program(*args)
-        captured = _Graph(graph, out, counts,
-                          fused_field_head.launches - launches,
-                          fused_field_head.rows - rows)
-        # the capture launched nothing: the replays count
-        fused_field_head.launches, fused_field_head.rows = launches, rows
+        captured = _Graph(graph, out, counts, launched)
         self.graphs[key] = captured
         self.captures += 1
         self.capture_seconds += time.perf_counter() - t0
@@ -220,7 +217,6 @@ class FrameGraphs:
             key, (state, sbatch, sgrid, *args))
         g.graph.replay()
         self.replays += 1
-        fused_field_head.launches += g.launches
-        fused_field_head.rows += g.rows
+        add_replay(g.launched)
         return ({k: v.clone() for k, v in g.out.items()},
                 None if g.counts is None else g.counts.clone())

@@ -30,8 +30,9 @@ A replay reads and writes fixed addresses, so ``GridGraphs`` keeps:
     grid that a queued frame, a ``RenderSession`` or a caller still reads.
 
 Before each capture the build runs once eagerly on the capture stream.
-The fused head's counters count at capture, when nothing runs: the
-launches and rows captured into each graph are added on each replay.
+The kernels' counters count at capture, when nothing runs: the
+launches and rows captured into each graph are added on each replay
+(``kernels/counters.py``).
 """
 from __future__ import annotations
 
@@ -41,7 +42,7 @@ from dataclasses import dataclass
 
 import torch
 
-from ..kernels.fused_head import fused_field_head
+from ..kernels.counters import add_replay, captured_counts
 from ..render.density_grid import DensityGridState
 from .model import TrainState
 
@@ -58,8 +59,8 @@ class _Graph:
     graph: torch.cuda.CUDAGraph
     out: DensityGridState      # the grid, in the pool
     signature: tuple
-    launches: int              # fused-head launches and rows per replay
-    rows: int
+    launched: list             # each counted kernel's (launches, rows)
+                               # per replay (kernels/counters.py)
 
 
 def _layout(t: torch.Tensor) -> tuple:
@@ -145,15 +146,11 @@ class GridGraphs:
         with torch.cuda.stream(self.stream):
             build(*args)   # warm-up: the build's kernels once
         torch.cuda.current_stream(self.device).wait_stream(self.stream)
-        launches, rows = fused_field_head.launches, fused_field_head.rows
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
+        with captured_counts() as launched, torch.cuda.graph(
+                graph, pool=self.pool, stream=self.stream):
             out = build(*args)
-        captured = _Graph(graph, out, signature,
-                          fused_field_head.launches - launches,
-                          fused_field_head.rows - rows)
-        # the capture launched nothing: the replays count
-        fused_field_head.launches, fused_field_head.rows = launches, rows
+        captured = _Graph(graph, out, signature, launched)
         self.captures += 1
         self.capture_seconds += time.perf_counter() - t0
         return captured
@@ -175,6 +172,5 @@ class GridGraphs:
             g = self.graphs[key] = self._capture(kind, args, sig)
         g.graph.replay()
         self.replays += 1
-        fused_field_head.launches += g.launches
-        fused_field_head.rows += g.rows
+        add_replay(g.launched)
         return DensityGridState(*(t.clone() for t in g.out))

@@ -30,8 +30,9 @@ Before each capture the step runs once eagerly on the capture stream
 (cuBLAS, cuDNN, NCCL and the head's library initialise there), without
 the optimizer and without writing the grid, so the state does not
 advance.
-The fused head's counters count at capture, when nothing runs: the
-launches and rows captured into each graph are added on each replay.
+The kernels' counters count at capture, when nothing runs: the
+launches and rows captured into each graph are added on each replay
+(``kernels/counters.py``).
 """
 from __future__ import annotations
 
@@ -41,7 +42,7 @@ from dataclasses import dataclass
 
 import torch
 
-from ..kernels.fused_head import fused_field_head
+from ..kernels.counters import add_replay, captured_counts
 from .model import StepDraws, TrainState
 
 __all__ = ["StepGraphs", "step_body"]
@@ -52,8 +53,8 @@ class _Graph:
     graph: torch.cuda.CUDAGraph
     losses: torch.Tensor       # (n,) in the pool: the step's loss values
     names: tuple[str, ...]
-    launches: int              # fused-head launches and rows per replay
-    rows: int
+    launched: list             # each counted kernel's (launches, rows)
+                               # per replay (kernels/counters.py)
 
 
 def _state_tensors(state: TrainState, model) -> list[torch.Tensor]:
@@ -174,18 +175,14 @@ class StepGraphs:
             if reduce is not None:
                 reduce[1](state.opt_state.params, losses, grid, False)
         torch.cuda.current_stream(self.device).wait_stream(self.stream)
-        launches, rows = fused_field_head.launches, fused_field_head.rows
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
+        with captured_counts() as launched, torch.cuda.graph(
+                graph, pool=self.pool, stream=self.stream):
             losses = step_body(model, state, self.batch, draws, update,
                                reduce)
             names = tuple(losses)
             stacked = torch.stack([losses[k].float() for k in names])
-        captured = _Graph(graph, stacked, names,
-                          fused_field_head.launches - launches,
-                          fused_field_head.rows - rows)
-        # the capture launched nothing: the replays count
-        fused_field_head.launches, fused_field_head.rows = launches, rows
+        captured = _Graph(graph, stacked, names, launched)
         self.graphs[key] = captured
         self.captures += 1
         self.capture_seconds += time.perf_counter() - t0
@@ -202,8 +199,7 @@ class StepGraphs:
         key = self.key(state, update, reduce)
         g = self.graphs.get(key) or self._capture(state, key, reduce)
         g.graph.replay()
-        fused_field_head.launches += g.launches
-        fused_field_head.rows += g.rows
+        add_replay(g.launched)
         losses = g.losses.clone()
         return (state._replace(step=state.step + 1),
                 dict(zip(g.names, losses.unbind(0))))

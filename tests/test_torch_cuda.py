@@ -1,5 +1,7 @@
 """Tests of the port that need an NVIDIA GPU (marker ``cuda``): the hand
-CUDA kernel against its plain version on the card, the field's
+CUDA kernels (the field head; the hash encode, forward and both
+backwards, eager and inside a captured graph) against their plain
+versions on the card, the field's
 no-autograd rule for the kernel head, one training step on the card
 against the same step on the CPU, the NGP hash encode and field, the
 nearest-vertex SMPL deformer (deform and bake) and LPIPS on the card
@@ -22,16 +24,18 @@ from pathlib import Path
 import pytest
 import torch
 
-from instantavatar_torch.kernels import (fused_field_head,
-                                         fused_field_head_ref, head_wave_rows)
+from instantavatar_torch.kernels import (COUNTED, fused_field_head,
+                                         fused_field_head_ref,
+                                         hash_encode_cuda, head_wave_rows)
 from instantavatar_torch.models import VoxelTriplaneField
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "tools"))
 sys.path.insert(0, str(ROOT))
 import make_torch_train_golden as golden_tool  # noqa: E402  (numpy only)
-from chip_smoke import (HEAD_EXACT_TOL, head_agrees,  # noqa: E402
-                        head_float64, head_gap, head_inputs)
+from chip_smoke import (ENCODE_FEAT_TOL, ENCODE_GRAD_RTOL,  # noqa: E402
+                        HEAD_EXACT_TOL, encode_check, encode_inputs,
+                        head_agrees, head_float64, head_gap, head_inputs)
 
 pytestmark = pytest.mark.cuda
 
@@ -171,11 +175,12 @@ def test_training_step_on_card_matches_cpu(golden_runs, i):
 
 
 def test_hash_encode_on_card_matches_cpu(cuda):
-    """``hash_encode`` at the default 16 x 2 @ 2^19 grid on the card
-    against the CPU on the same numpy-seeded points (0, 1, lattice
-    corners, outside [0, 1]): slots exactly, features 1e-6, the table's
-    and the points' gradients 1e-5 L2-relative (atomic adds sum in
-    another order); ``NGPField.apply`` 1e-5."""
+    """``hash_encode`` at the default 16 x 2 @ 2^19 grid on the card (the
+    CUDA kernel, forward and backward) against the CPU (the plain
+    version) on the same numpy-seeded points (0, 1, lattice corners,
+    outside [0, 1]): slots exactly, features 1e-6, the table's and the
+    points' gradients 1e-5 L2-relative (atomic adds sum in another
+    order); ``NGPField.apply`` 1e-5."""
     import numpy as np
     from instantavatar_torch.models import NGPField
     from instantavatar_torch.ops import (HashGridConfig, hash_encode,
@@ -189,6 +194,7 @@ def test_hash_encode_on_card_matches_cpu(cuda):
     table = g.normal(0.0, 0.1, (16, cfg.table_size, 2)).astype(np.float32)
     ct = g.normal(size=(4096, 32)).astype(np.float32)
     res = []
+    launches = hash_encode_cuda.launches
     for dev in (cuda, torch.device("cpu")):
         xt = torch.as_tensor(x, device=dev).requires_grad_()
         tt = torch.as_tensor(table, device=dev).requires_grad_()
@@ -196,6 +202,8 @@ def test_hash_encode_on_card_matches_cpu(cuda):
         (f * torch.as_tensor(ct, device=dev)).sum().backward()
         res.append([hash_slots(xt.detach(), cfg).cpu(), f.detach().cpu(),
                     tt.grad.cpu(), xt.grad.cpu()])
+    # the kernel ran: forward, the table's and the points' backward
+    assert hash_encode_cuda.launches == launches + 3
     (s0, f0, gt0, gx0), (s1, f1, gt1, gx1) = res
     assert torch.equal(s0, s1)
     torch.testing.assert_close(f0, f1, rtol=0, atol=1e-6)
@@ -209,6 +217,123 @@ def test_hash_encode_on_card_matches_cpu(cuda):
         c, s = field.apply(torch.as_tensor(x, device=dev) - 0.5, 0 * one, one)
         outs.append((c.detach().cpu(), s.detach().cpu()))
     torch.testing.assert_close(outs[0], outs[1], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("n", [1, 17, 2 ** 19 + 1])
+def test_hash_encode_kernel_matches_plain_on_card(cuda, n):
+    """The hash-encode kernel against ``hash_encode_ref`` and
+    ``hash_encode_backward_ref`` on the card, on numpy-seeded inputs with
+    boundary, lattice and out-of-range points: features within
+    ENCODE_FEAT_TOL absolute, the table's and the points' gradients
+    within ENCODE_GRAD_RTOL L2-relative (fp32 atomics sum in another
+    order); one forward and two backward launches."""
+    r = encode_check(cuda, n, seed=n)
+    assert r["launches"] == 3
+    assert r["feat_err"] <= ENCODE_FEAT_TOL, r
+    assert r["grad_table_rel"] <= ENCODE_GRAD_RTOL, r
+    assert r["grad_x_rel"] <= ENCODE_GRAD_RTOL, r
+
+
+def test_hash_encode_deterministic_backward_on_card(cuda):
+    """Under deterministic algorithms the table's gradient (rows sorted,
+    runs summed in point order, in chunks) is bit-identical on two runs,
+    and within ENCODE_GRAD_RTOL of the plain version; the rows, the run
+    pieces, their join and the points' gradient are four launches beside
+    the forward."""
+    one = encode_check(cuda, 70_001, seed=3, deterministic=True, keep=True)
+    two = encode_check(cuda, 70_001, seed=3, deterministic=True, keep=True)
+    assert one["launches"] == 5
+    assert one["grad_table_rel"] <= ENCODE_GRAD_RTOL, one
+    assert one["grad_x_rel"] <= ENCODE_GRAD_RTOL, one
+    for k in ("out", "grad_table", "grad_x"):
+        assert torch.equal(one[k], two[k]), k
+
+
+@pytest.mark.parametrize("deterministic", [False, True])
+def test_hash_encode_kernel_in_cuda_graph(cuda, deterministic):
+    """The kernel, forward and backward, captured in a CUDA graph: each
+    replay equals the eager call (bit for bit but for the atomic table
+    gradient, within ENCODE_GRAD_RTOL), and the graph's launches, taken
+    off the counters at capture, come back once per replay."""
+    from instantavatar_torch.kernels import add_replay, captured_counts
+    from instantavatar_torch.ops import HashGridConfig, level_resolutions
+    res = level_resolutions(HashGridConfig())
+    table, x, ct = encode_inputs(5_000, 11, cuda)
+    tt, xt = table.requires_grad_(), x.requires_grad_()
+
+    def body():
+        out = hash_encode_cuda(tt, xt, res)
+        return (out, *torch.autograd.grad(out, (tt, xt), ct))
+    torch.use_deterministic_algorithms(deterministic)
+    try:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            eager = [t.clone() for t in body()]
+        torch.cuda.current_stream().wait_stream(side)
+        before = (hash_encode_cuda.launches, hash_encode_cuda.rows)
+        graph = torch.cuda.CUDAGraph()
+        with captured_counts() as launched, torch.cuda.graph(graph):
+            static = body()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    per = launched[COUNTED.index(hash_encode_cuda)]
+    assert per == ((5, 5 * 5_000) if deterministic else (3, 3 * 5_000))
+    assert (hash_encode_cuda.launches, hash_encode_cuda.rows) == before
+    for i in range(2):
+        graph.replay()
+        add_replay(launched)
+        torch.cuda.synchronize()
+        assert hash_encode_cuda.launches == before[0] + (i + 1) * per[0]
+        assert torch.equal(static[0], eager[0])
+        assert torch.equal(static[2], eager[2])
+        if deterministic:
+            assert torch.equal(static[1], eager[1])
+        else:
+            rel = (static[1] - eager[1]).norm() / eager[1].norm()
+            assert float(rel) <= ENCODE_GRAD_RTOL
+
+
+def test_hash_encode_kernel_nan_point(cuda):
+    """A NaN point indexes inside its levels (the cell is clamped after
+    the conversion) and gives NaN features, as the plain version does;
+    the other points' features and the backward are unaffected."""
+    from instantavatar_torch.ops import (HashGridConfig, hash_encode_ref,
+                                         level_resolutions)
+    cfg = HashGridConfig()
+    table, x, ct = encode_inputs(1000, 12, cuda)
+    x[7, 1] = float("nan")
+    tt = table.clone().requires_grad_()
+    feats = hash_encode_cuda(tt, x, level_resolutions(cfg))
+    feats.backward(ct)
+    torch.cuda.synchronize()
+    out, ref = feats.detach(), hash_encode_ref(table, x, cfg)
+    assert bool(torch.isnan(out[7]).all()) and bool(torch.isnan(ref[7]).all())
+    others = torch.ones(1000, dtype=torch.bool, device=cuda)
+    others[7] = False
+    assert float((out[others] - ref[others]).abs().max()) <= ENCODE_FEAT_TOL
+    assert int(torch.isnan(tt.grad).any(-1).sum()) <= 16 * 8
+
+
+def test_hash_encode_kernel_empty_input(cuda):
+    """N = 0: an empty (0, L * F) result and a zero table gradient, with
+    no launch."""
+    from instantavatar_torch.ops import (HashGridConfig, hash_encode,
+                                         level_resolutions)
+    cfg = HashGridConfig()
+    table = torch.zeros((16, cfg.table_size, 2), device=cuda,
+                        requires_grad=True)
+    x = torch.empty((0, 3), device=cuda, requires_grad=True)
+    before = hash_encode_cuda.launches
+    out = hash_encode_cuda(table, x, level_resolutions(cfg))
+    assert out.shape == (0, 32) and out.device.type == "cuda"
+    out.sum().backward()
+    assert table.grad is not None and not bool(table.grad.any())
+    assert x.grad.shape == (0, 3)
+    out = hash_encode(table, torch.empty((2, 0, 3), device=cuda), cfg)
+    assert out.shape == (2, 0, 32)
+    torch.cuda.synchronize()
+    assert hash_encode_cuda.launches == before
 
 
 def test_smpl_deformer_on_card_matches_cpu(cuda):
@@ -537,7 +662,8 @@ def test_step_graph_counts_the_head_on_replay(cuda):
     avatar, _, _ = _graph_run(cuda, True, steps=2)
     g = avatar.step_graphs
     assert isinstance(g, StepGraphs) and g.captures == 2
-    per_graph = {k: (c.launches, c.rows) for k, c in g.graphs.items()}
+    per_graph = {k: c.launched[COUNTED.index(fused_field_head)]
+                 for k, c in g.graphs.items()}
     assert all(v == (1, eager[1] // 2) for v in per_graph.values()), \
         per_graph
     # two replays, each warm-up one launch of the same rows
