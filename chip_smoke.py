@@ -66,13 +66,19 @@ points a user calls, and checks it in phases:
      then the kernel against its plain version (``hash_encode_ref``,
      ``hash_encode_backward_ref``) at ENCODE_CHECK_N points with boundary,
      lattice and out-of-range rows (features ENCODE_FEAT_TOL, gradients
-     ENCODE_GRAD_RTOL), its deterministic backward bit-identical on two
-     runs; on the largest call of a training step and of an animate
-     frame, the kernel held against its plain version on those points
-     (same tolerances) and then both timed in turns, forward and forward
-     plus backward (the deterministic backward too), with their device
-     launches per call and the byte bound; and the committed JAX
-     NGP golden frame (48 px), PSNR-bounded;
+     ENCODE_GRAD_RTOL) and at ENCODE_GRID_N points on ``encode_grids``
+     (F = 1, 4, 8 and 3 features per row, 40 levels), its deterministic
+     backward bit-identical on two runs at 2^20 points and on each grid;
+     on the largest call of a training step and of an animate frame, the
+     kernel held against its plain version on those points (same
+     tolerances), then both timed in turns, forward, forward plus the
+     table's backward (the deterministic backward too), forward plus both
+     gradients (fit's and refine's call) and the points' backward alone,
+     with their device launches per call and the byte bound, and the
+     kernel by level group (``encode_groups``: each group of the forward's
+     levels alone on a view of the table, beside that group's bound); and
+     the committed JAX NGP golden
+     frame (48 px), PSNR-bounded;
  13. the in-the-wild demo (``bash/run-neuman-demo.sh``) on a copy of phase
      11's sequence read as ``dataset=custom/video``, made to look like a
      preprocessed video first (the toy body written as
@@ -200,8 +206,9 @@ Any failed check, a spawned rank's non-zero exit or a spawned run past
 its time limit exits non-zero. The last stdout line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``
 and the line before it lists the kernels: the hash encode with its
-launches on each NGP path (phases 12, 13 and 16) and its times at the
-training call's points, and the head with its launches in
+launches on each NGP path (phases 12, 13 and 16), its times at the
+training call's points and its forward at the animate call's, and the
+head with its launches in
 each path (turntable, training, val render, phase 11's CLI train run,
 Trainer validation, Trainer test, animate and novel_view, and phase 13's
 SMPL-deformer voxel-triplane frame, phase 14's eval modes, phase
@@ -219,6 +226,7 @@ Run from the repository root:  python3 chip_smoke.py [--profile DIR]
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -257,17 +265,17 @@ JAX_CACHED_EPOCH5_DB = 33.72   # artifacts/r5_warp_gate.jsonl (TPU history)
 # phase 11: the sequence the entry points train on, and their runs
 CLI_SIZE, CLI_TRAIN, CLI_VAL, CLI_TEST = 264, 20, 1, 2
 CLI_EPOCHS, CLI_POSES, CLI_TURNTABLE = 5, 6, 8
-# phase 12: the NGP golden's floor, fit's epochs, the default table's bytes
+# phase 12: the NGP golden's floor, fit's epochs
 NGP_GOLDEN_MIN_DB, FIT_EPOCHS = 35.0, 2
-NGP_TABLE_BYTES = 16 * 2 ** 19 * 2 * 4
 # the hash-encode kernel against its plain version: features absolute
 # (the same fp32 lerp, 8 products summed in another order), gradients
 # L2-relative (fp32 atomics sum in another order); the point counts
 # checked (2^19 is the plain version's chunk; 2^20 one training render
-# call), the timed repetitions
+# call), the timed repetitions of a whole call and of one level group
 ENCODE_FEAT_TOL, ENCODE_GRAD_RTOL = 1e-6, 1e-5
 ENCODE_CHECK_N = (1, 17, 2 ** 19 - 1, 2 ** 19 + 1, 2 ** 20)
-ENCODE_REPS = 15
+ENCODE_GRID_N = 2 ** 16 + 3    # points at each of the other grids
+ENCODE_REPS, ENCODE_GROUP_REPS = 15, 5
 # phase 4's (bench.py's) render knobs; phase 14 varies the eval mode
 AVATAR_540_KW = dict(n_steps=128, k_cap=8, grid_size=64, eval_n_steps=48,
                      cache_n_cand=1, samples_per_ray=5.0,
@@ -894,6 +902,19 @@ def cli_overrides(seq: Path, run: Path) -> list[str]:
             "dataset.opt.test.skip=1", "dataset.opt.test.downscale=1"]
 
 
+def write_poses(path: Path) -> None:
+    """The CLI_POSES-pose ``animate`` sequence (numpy-seeded: a yaw sweep,
+    swinging arms, small noise) as ``poses.npz``."""
+    g = np.random.default_rng(0)
+    poses = np.zeros((CLI_POSES, 72), np.float32)
+    poses[:, 1] = np.linspace(-0.6, 0.6, CLI_POSES)     # yaw
+    poses[:, 3 + 47] = 0.6 * np.sin(np.arange(CLI_POSES))
+    poses[:, 3 + 50] = -0.6 * np.sin(np.arange(CLI_POSES))
+    poses[:, 3:] += 0.05 * g.standard_normal((CLI_POSES, 69))
+    trans = np.tile(np.array([[0.0, 0.0, 3.0]], np.float32), (CLI_POSES, 1))
+    np.savez(path, poses=poses, trans=trans)
+
+
 def cli_phase(dev, work: Path) -> dict:
     """Phase 11: the entry points a user runs, in process, on the card
     (their default device). Returns the measured numbers and, per path,
@@ -963,14 +984,7 @@ def cli_phase(dev, work: Path) -> dict:
     print(f"[cli] Trainer.test: PSNR {test_m['psnr']:.2f} dB, SSIM "
           f"{test_m['ssim']:.4f} over {CLI_TEST} frames")
 
-    g = np.random.default_rng(0)
-    poses = np.zeros((CLI_POSES, 72), np.float32)
-    poses[:, 1] = np.linspace(-0.6, 0.6, CLI_POSES)     # yaw
-    poses[:, 3 + 47] = 0.6 * np.sin(np.arange(CLI_POSES))
-    poses[:, 3 + 50] = -0.6 * np.sin(np.arange(CLI_POSES))
-    poses[:, 3:] += 0.05 * g.standard_normal((CLI_POSES, 69))
-    trans = np.tile(np.array([[0.0, 0.0, 3.0]], np.float32), (CLI_POSES, 1))
-    np.savez(work / "poses.npz", poses=poses, trans=trans)
+    write_poses(work / "poses.npz")
     rd = "+render_downscale=2"
     anim, *paths["cli_animate"] = _counted(lambda: animate.main(
         ["--config-name", "SNARF_NGP", f"+pose_sequence={work / 'poses.npz'}",
@@ -1115,25 +1129,36 @@ def device_busy(fn, top: int = 5) -> tuple[int, float, list]:
             sum(ms for _, ms in by_name.values()), ranked[:top])
 
 
-def encode_bound(rows: int, touched: int, backward: bool,
-                 point_grad: bool = False) -> float:
-    """Least time (ms) of ``hash_encode`` on ``rows`` points that touch
-    ``touched`` distinct table rows, at the HBM rate (the FLOPs, ~1 KFLOP
-    per point, take <1% of that at the fp32 rate): 12 B of points in and
-    128 B of fp32 features out per point plus 8 B per touched table row;
-    with the backward also the 128 B per point of incoming gradient and
-    the dense 64 MiB table gradient written once, and with ``point_grad``
-    (the call asks for the points' gradient) 12 B per point of it."""
-    nbytes = rows * (12 + 128) + touched * 8
-    if backward:
-        nbytes += rows * 128 + NGP_TABLE_BYTES
-        if point_grad:
-            nbytes += rows * 12
+def encode_bound(rows: int, touched: int, *, forward: bool = True,
+                 table_grad: bool = False, point_grad: bool = False,
+                 cfg=None) -> float:
+    """Least time (ms) of a ``hash_encode`` call on ``rows`` points that
+    touch ``touched`` distinct table rows of the (L, T, F) table of
+    ``cfg`` (the default grid if None), at the HBM rate (the FLOPs, ~60
+    per point and level, take <1% of that at the fp32 rate): 12 B of
+    points in per point and F * 4 B per touched table row; with
+    ``forward`` L * F * 4 B of fp32 features out per point; with either
+    gradient the L * F * 4 B per point of incoming gradient; with
+    ``table_grad`` the dense L * T * F * 4 B table gradient written once;
+    with ``point_grad`` 12 B per point of the points' gradient."""
+    from instantavatar_torch.ops import HashGridConfig
+    cfg = cfg or HashGridConfig()
+    L, T, F = cfg.n_levels, cfg.table_size, cfg.n_features
+    nbytes = rows * 12 + touched * F * 4
+    if forward:
+        nbytes += rows * L * F * 4
+    if table_grad or point_grad:
+        nbytes += rows * L * F * 4
+    if table_grad:
+        nbytes += L * T * F * 4
+    if point_grad:
+        nbytes += rows * 12
     return 1e3 * nbytes / HBM_BYTES_PER_S
 
 
-def encode_inputs(n: int, seed: int, device):
-    """``n`` points at the default grid, numpy-seeded: uniform in [-0.1,
+def encode_inputs(n: int, seed: int, device, cfg=None):
+    """``n`` points for the grid ``cfg`` (the default grid if None),
+    numpy-seeded: uniform in [-0.1,
     1.1]^3 with every fifth row (from row 1) an axis at exactly 0, every
     fifth (from row 2) an axis at exactly 1, every fifth (from row 3) on a
     lattice point of a random level and every fifth (from row 4) a copy of
@@ -1141,7 +1166,7 @@ def encode_inputs(n: int, seed: int, device):
     table and an N(0, 1) gradient of the features. Returns (table, x,
     grad) on ``device``."""
     from instantavatar_torch.ops import HashGridConfig, level_resolutions
-    cfg = HashGridConfig()
+    cfg = cfg or HashGridConfig()
     res = np.array(level_resolutions(cfg))
     g = np.random.default_rng(seed)
     x = g.uniform(-0.1, 1.1, (n, 3)).astype(np.float32)
@@ -1165,19 +1190,20 @@ def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
 
 
 def encode_check(dev, n: int, seed: int, deterministic: bool = False,
-                 keep: bool = False) -> dict:
+                 keep: bool = False, cfg=None) -> dict:
     """The hash-encode kernel, forward and backward (atomic, or the
     sorted run sum under deterministic algorithms), against
     ``hash_encode_ref`` and ``hash_encode_backward_ref`` on
-    ``encode_inputs(n, seed)``: the features' max abs error, the table's
+    ``encode_inputs(n, seed, cfg)`` (the default grid if ``cfg`` is None):
+    the features' max abs error, the table's
     and the points' gradients' L2-relative errors, the kernel's launches;
     with ``keep`` also the kernel's outputs."""
     from instantavatar_torch.kernels import hash_encode_cuda
     from instantavatar_torch.ops import (HashGridConfig,
                                          hash_encode_backward_ref,
                                          hash_encode_ref, level_resolutions)
-    cfg = HashGridConfig()
-    table, x, grad = encode_inputs(n, seed, dev)
+    cfg = cfg or HashGridConfig()
+    table, x, grad = encode_inputs(n, seed, dev, cfg)
     tt, xt = table.clone().requires_grad_(), x.clone().requires_grad_()
     launches = hash_encode_cuda.launches
     torch.use_deterministic_algorithms(deterministic)
@@ -1200,35 +1226,59 @@ def encode_check(dev, n: int, seed: int, deterministic: bool = False,
     return res
 
 
+def encode_grids():
+    """The grids the kernel is held at besides the default: every
+    compiled feature width (1, 4, 8), one width the feature loop takes
+    (3), and 40 levels (past the earlier limit of 32), each with dense and
+    hashed levels."""
+    from instantavatar_torch.ops import HashGridConfig
+    return [HashGridConfig(n_features=f) for f in (1, 4, 8, 3)] + [
+        HashGridConfig(n_levels=40, log2_hashmap_size=14, base_resolution=4,
+                       per_level_scale=1.2)]
+
+
+def _encode_checked(r: dict, what: str, launches: int) -> None:
+    print(f"[encode] kernel vs plain, {what} (boundary, lattice and "
+          f"out-of-range rows): features max|diff| {r['feat_err']:.2e} "
+          f"(tol {ENCODE_FEAT_TOL}), table gradient "
+          f"{r['grad_table_rel']:.2e} and point gradient "
+          f"{r['grad_x_rel']:.2e} L2-relative (tol {ENCODE_GRAD_RTOL}), "
+          f"{r['launches']} launches")
+    check(r["finite"] and r["feat_err"] <= ENCODE_FEAT_TOL
+          and r["grad_table_rel"] <= ENCODE_GRAD_RTOL
+          and r["grad_x_rel"] <= ENCODE_GRAD_RTOL
+          and r["launches"] == launches,
+          f"the hash-encode kernel disagrees at {what}")
+
+
 def encode_checks(dev) -> float:
-    """The kernel against its plain version at ENCODE_CHECK_N (default
-    mode), and the deterministic backward bit-identical on two runs at
-    the largest; returns the features' largest max|diff|."""
+    """The kernel against its plain version at ENCODE_CHECK_N on the
+    default grid and at ENCODE_GRID_N on each of ``encode_grids`` (default
+    mode), and the deterministic backward bit-identical on two runs at the
+    largest N and on each grid; returns the features' largest
+    max|diff|."""
     worst = 0.0
-    for n in ENCODE_CHECK_N:
-        r = encode_check(dev, n, seed=n)
-        print(f"[encode] kernel vs plain, {n} points (boundary, lattice and "
-              f"out-of-range rows): features max|diff| {r['feat_err']:.2e} "
-              f"(tol {ENCODE_FEAT_TOL}), table gradient "
-              f"{r['grad_table_rel']:.2e} and point gradient "
-              f"{r['grad_x_rel']:.2e} L2-relative (tol {ENCODE_GRAD_RTOL}), "
-              f"{r['launches']} launches")
-        check(r["finite"] and r["feat_err"] <= ENCODE_FEAT_TOL
-              and r["grad_table_rel"] <= ENCODE_GRAD_RTOL
-              and r["grad_x_rel"] <= ENCODE_GRAD_RTOL and r["launches"] == 3,
-              f"the hash-encode kernel disagrees at {n} points")
+    runs = [(n, None, f"{n} points") for n in ENCODE_CHECK_N] + [
+        (ENCODE_GRID_N, cfg, f"{ENCODE_GRID_N} points, {cfg.n_levels} "
+         f"levels of {cfg.n_features} features, T = 2^"
+         f"{cfg.log2_hashmap_size}") for cfg in encode_grids()]
+    for n, cfg, what in runs:
+        r = encode_check(dev, n, seed=n, cfg=cfg)
+        _encode_checked(r, what, 3)
         worst = max(worst, r["feat_err"])
-    n = ENCODE_CHECK_N[-1]
-    one, two = (encode_check(dev, n, seed=1, deterministic=True, keep=True)
-                for _ in range(2))
-    same = all(torch.equal(one[k], two[k])
-               for k in ("out", "grad_table", "grad_x"))
-    print(f"[encode] deterministic backward, {n} points: table gradient "
-          f"{one['grad_table_rel']:.2e} L2-relative from the plain version, "
-          f"{one['launches']} launches; two runs bit-identical: {same}")
-    check(same and one["grad_table_rel"] <= ENCODE_GRAD_RTOL
-          and one["launches"] == 5,
-          "the deterministic hash-encode backward is not reproducible")
+    for n, cfg, what in [runs[len(ENCODE_CHECK_N) - 1]] + runs[
+            len(ENCODE_CHECK_N):]:
+        one, two = (encode_check(dev, n, seed=1, deterministic=True,
+                                 keep=True, cfg=cfg) for _ in range(2))
+        same = all(torch.equal(one[k], two[k])
+                   for k in ("out", "grad_table", "grad_x"))
+        print(f"[encode] deterministic backward, {what}: table gradient "
+              f"{one['grad_table_rel']:.2e} L2-relative from the plain "
+              f"version, {one['launches']} launches; two runs "
+              f"bit-identical: {same}")
+        check(same, f"the deterministic hash-encode backward is not "
+              f"reproducible at {what}")
+        _encode_checked(one, what + ", deterministic", 5)
     return worst
 
 
@@ -1261,18 +1311,40 @@ def encode_path_check(path: str, table: torch.Tensor, x: torch.Tensor,
     return feat
 
 
-def encode_timing(dev, path_points: dict[str, torch.Tensor]) -> dict:
+@contextlib.contextmanager
+def _hash_library(info):
+    """The hash-encode wrapper runs on the build ``info`` (a ``BuildInfo``
+    of a source with ``csrc/hash_encode.cu``'s C interface) inside the
+    block; None leaves it on the checkout's."""
+    import instantavatar_torch.kernels.hash_encode as kmod
+    build = kmod.build_hash_library
+    if info is not None:
+        kmod.build_hash_library = lambda: info
+    try:
+        yield
+    finally:
+        kmod.build_hash_library = build
+
+
+def encode_timing(dev, path_points: dict[str, torch.Tensor],
+                  libs: dict | None = None) -> dict:
     """The hash encode on each path's largest call (its normalized
     points, as the field encoded them; random table), after
     ``encode_checks`` and, on the same points, ``encode_path_check``: the
-    kernel and the plain version (``hash_encode_ref``) in turns, forward
-    and forward plus backward (the kernel's deterministic backward too),
-    median of ENCODE_REPS (CUDA events), their device launches per call
-    (torch.profiler) and the bound. The backward's gradient is zero on
-    padding rows, as in a training step."""
+    kernel and the plain version (``hash_encode_ref``) in turns, median of
+    ENCODE_REPS (CUDA events), with their device launches per call
+    (torch.profiler) and the bound: forward; forward plus the table's
+    backward (a training step's call; the kernel's deterministic backward
+    too); forward plus both gradients (fit's and refine's call, the points
+    requiring grad); the points' backward alone (its one kernel). The
+    features' gradient is zero on padding rows, as in a training step.
+    ``libs`` (name -> ``BuildInfo`` of another build of the source, same C
+    interface) are each held against the plain version on the paths'
+    points and timed in the same turns, under their names."""
     from instantavatar_torch.ops import (HashGridConfig, hash_encode,
                                          hash_encode_ref, hash_slots)
     cfg = HashGridConfig()
+    builds = {"kernel": None, **(libs or {})}
     out = {"max_err": encode_checks(dev)}
     g = np.random.default_rng(3)
     table = torch.as_tensor(g.normal(0.0, 0.1, (cfg.n_levels, cfg.table_size,
@@ -1280,9 +1352,11 @@ def encode_timing(dev, path_points: dict[str, torch.Tensor]) -> dict:
                             .astype(np.float32), device=dev)
     for path, x in path_points.items():
         rows = x.shape[0]
-        touched = int(torch.unique(
-            (hash_slots(x, cfg) + torch.arange(cfg.n_levels, device=dev)
-             [:, None] * cfg.table_size).reshape(-1)).numel())
+        slots = hash_slots(x, cfg)                   # (N, L, 8), per level
+        touched_by_level = [int(torch.unique(slots[:, l]).numel())
+                            for l in range(cfg.n_levels)]
+        touched = sum(touched_by_level)
+        del slots
         tab = table.clone().requires_grad_()
         # the features' gradient: ones, but zero on a point that repeats
         # the point before it (a static budget's padding, the ray's first
@@ -1290,8 +1364,18 @@ def encode_timing(dev, path_points: dict[str, torch.Tensor]) -> dict:
         pad = torch.zeros(rows, dtype=torch.bool, device=dev)
         pad[1:] = (x[1:] == x[:-1]).all(-1)
         ct = (~pad).float()[:, None].expand(rows, cfg.out_dim).contiguous()
-        out["max_err"] = max(out["max_err"],
-                             encode_path_check(path, table, x, ct, cfg))
+        for name, info in builds.items():
+            with _hash_library(info):
+                err = encode_path_check(f"{path} ({name})", table, x, ct,
+                                        cfg)
+            if info is None:
+                out["max_err"] = max(out["max_err"], err)
+
+        def on(info, fn):
+            def run():
+                with _hash_library(info):
+                    fn()
+            return run
 
         def fwd(fn):
             def run():
@@ -1299,27 +1383,50 @@ def encode_timing(dev, path_points: dict[str, torch.Tensor]) -> dict:
                     fn(table, x, cfg)
             return run
 
-        def fwd_bwd(fn, deterministic=False):
+        def fwd_bwd(fn, deterministic=False, points=False):
+            xg = x.clone().requires_grad_(points)
+
             def run():
-                tab.grad = None
+                tab.grad = xg.grad = None
                 torch.use_deterministic_algorithms(deterministic)
                 try:
-                    fn(tab, x, cfg).backward(ct)
+                    fn(tab, xg, cfg).backward(ct)
                 finally:
                     torch.use_deterministic_algorithms(False)
             return run
+
+        def bwd_x(fn, info=None):
+            xg = x.clone().requires_grad_()
+            with _hash_library(info):
+                feats = fn(table, xg, cfg)
+            return lambda: torch.autograd.grad(feats, xg, ct,
+                                               retain_graph=True)
+
+        def kernels(make):
+            return {name: on(info, make(info)) for name, info in
+                    builds.items()}
         res = {"rows": rows, "touched_rows": touched,
                "padded_rows": int(pad.sum())}
         print(f"[encode] {path}: {rows} points, {res['padded_rows']} of them "
               f"a repeat of the point before (gradient zero in the timed "
               f"backward)")
-        for name, fns, bwd in (
-                ("fwd", {"kernel": fwd(hash_encode),
-                         "plain": fwd(hash_encode_ref)}, False),
-                ("fwd_bwd", {"kernel": fwd_bwd(hash_encode),
-                             "plain": fwd_bwd(hash_encode_ref),
-                             "kernel_det": fwd_bwd(hash_encode, True)},
-                 True)):
+        variants = (
+            ("fwd", lambda: {**kernels(lambda i: fwd(hash_encode)),
+                             "plain": fwd(hash_encode_ref)},
+             dict(forward=True)),
+            ("fwd_bwd", lambda: {**kernels(lambda i: fwd_bwd(hash_encode)),
+                                 "plain": fwd_bwd(hash_encode_ref),
+                                 "kernel_det": fwd_bwd(hash_encode, True)},
+             dict(table_grad=True)),
+            ("fwd_bwd_x", lambda: {
+                **kernels(lambda i: fwd_bwd(hash_encode, points=True)),
+                "plain": fwd_bwd(hash_encode_ref, points=True)},
+             dict(table_grad=True, point_grad=True)),
+            ("bwd_x", lambda: {**kernels(lambda i: bwd_x(hash_encode, i)),
+                               "plain": bwd_x(hash_encode_ref)},
+             dict(forward=False, point_grad=True)))
+        for name, make_fns, parts in variants:
+            fns = make_fns()
             times = {k: [] for k in fns}
             for fn in fns.values():
                 for _ in range(2):
@@ -1327,7 +1434,7 @@ def encode_timing(dev, path_points: dict[str, torch.Tensor]) -> dict:
             for i in range(ENCODE_REPS):   # in turns, the order alternating
                 for k in (list(fns) if i % 2 == 0 else list(fns)[::-1]):
                     times[k] += cuda_ms(fns[k], 1)
-            bound = encode_bound(rows, touched, bwd, x.requires_grad)
+            bound = encode_bound(rows, touched, **parts)
             res[f"{name}_bound_ms"] = bound
             for k, fn in fns.items():
                 ms = statistics.median(times[k])
@@ -1340,10 +1447,87 @@ def encode_timing(dev, path_points: dict[str, torch.Tensor]) -> dict:
                       f"device launches per call (torch.profiler), bound "
                       f"{bound:.4f} ms set by bytes, {100 * bound / ms:.1f}% "
                       f"of it")
+            del fns
             print(f"[encode] {path}: {name} kernel "
                   f"{res[f'{name}_plain_ms'] / res[f'{name}_kernel_ms']:.1f}x "
-                  f"faster than the plain version")
+                  f"faster than the plain version" + "".join(
+                      f"; {k} / kernel "
+                      f"{res[f'{name}_{k}_ms'] / res[f'{name}_kernel_ms']:.3f}"
+                      for k in builds if k != "kernel"))
+        res["groups"] = {}
+        for name, info in builds.items():
+            with _hash_library(info):
+                res["groups"][name] = encode_groups(
+                    f"{path} ({name})", table, x, ct, cfg, touched_by_level)
         out[path] = res
+    return out
+
+
+# csrc/hash_encode.cu: kForwardFloats, the floats of a point's row that
+# one level group of the forward fills
+ENCODE_GROUP_FLOATS = 8
+
+
+def encode_groups(path: str, table: torch.Tensor, x: torch.Tensor,
+                  ct: torch.Tensor, cfg, touched: list[int]) -> list[dict]:
+    """The kernel by level group on one path's points: each group of the
+    forward's G levels (ENCODE_GROUP_FLOATS / F, one 32-byte sector of a
+    point's features; 4 at F = 2) alone, on a view of the table (its
+    contiguous (G, T, F) slice, its resolutions), forward and forward plus
+    the table's backward (that group's slice of the features' gradient),
+    median of ENCODE_GROUP_REPS (CUDA events), beside the group's byte
+    bound (``encode_bound`` of a G-level grid: the points, the group's
+    features and its distinct rows; with the backward its gradient slice
+    and its (G, T, F) table gradient). The forward runs a view as it runs
+    that group of the whole table; the table's backward, whose groups are
+    whole rows of the whole table (16 levels at F = 2), runs a G-level
+    view in groups of G. The groups' sum reads the points once a group."""
+    from instantavatar_torch.ops import hash_encode, level_resolutions
+    res = level_resolutions(cfg)
+    L, F = cfg.n_levels, cfg.n_features
+    G = ENCODE_GROUP_FLOATS // F if F in (1, 2, 4, 8) else 1
+    rows = x.shape[0]
+    g = ct.view(rows, L, F)
+    out = []
+    for l0 in range(0, L, G):
+        l1 = min(l0 + G, L)
+        view = cfg._replace(n_levels=l1 - l0)
+        tab = table[l0:l1]
+        tab_g = tab.clone().requires_grad_()
+        g_v = g[:, l0:l1].reshape(rows, (l1 - l0) * F).contiguous()
+        rows_hit = sum(touched[l0:l1])
+
+        def fwd():
+            with torch.no_grad():
+                hash_encode(tab, x, view, res[l0:l1])
+
+        def fwd_bwd():
+            tab_g.grad = None
+            hash_encode(tab_g, x, view, res[l0:l1]).backward(g_v)
+        r = {"levels": (l0, l1 - 1), "res": res[l0:l1],
+             "touched_rows": rows_hit,
+             "dense": [(r_ + 1) ** 3 <= cfg.table_size for r_ in res[l0:l1]]}
+        for name, fn, tg in (("fwd", fwd, False), ("fwd_bwd", fwd_bwd, True)):
+            fn()
+            r[f"{name}_ms"] = statistics.median(cuda_ms(fn, ENCODE_GROUP_REPS))
+            r[f"{name}_bound_ms"] = encode_bound(rows, rows_hit,
+                                                 table_grad=tg, cfg=view)
+        out.append(r)
+        kind = ("dense" if all(r["dense"]) else "hashed"
+                if not any(r["dense"]) else "dense and hashed")
+        print(f"[encode] {path} levels {l0}-{l1 - 1} (res {res[l0]}-"
+              f"{res[l1 - 1]}, {kind}, {rows_hit} rows touched): forward "
+              f"{r['fwd_ms']:.4f} ms, "
+              f"{100 * r['fwd_bound_ms'] / r['fwd_ms']:.1f}% of its "
+              f"{r['fwd_bound_ms']:.4f} ms bound; with the backward "
+              f"{r['fwd_bwd_ms']:.4f} ms, "
+              f"{100 * r['fwd_bwd_bound_ms'] / r['fwd_bwd_ms']:.1f}% of "
+              f"{r['fwd_bwd_bound_ms']:.4f} ms (median of "
+              f"{ENCODE_GROUP_REPS}, a {l1 - l0}-level view)")
+        del tab_g
+    print(f"[encode] {path}: the {len(out)} group calls sum to forward "
+          f"{sum(r['fwd_ms'] for r in out):.4f} ms, with the backward "
+          f"{sum(r['fwd_bwd_ms'] for r in out):.4f} ms")
     return out
 
 
@@ -3752,6 +3936,7 @@ def main(profile_dir: Path | None) -> int:
     enc_by_path = {**ngp["encode_paths"], **demo["encode_paths"],
                    **graphs["encode_paths"]}
     t = ngp["encode"]["train_step_call"]
+    a = ngp["encode"]["animate_frame_call"]
     print(f"[smoke] hash-encode kernel launches by path "
           f"{ {k: v[0] for k, v in enc_by_path.items()} }")
     print(json.dumps({"kernels": [{
@@ -3779,7 +3964,14 @@ def main(profile_dir: Path | None) -> int:
         "library_ms": None,
         "fwd_ms": t["fwd_kernel_ms"], "fwd_plain_ms": t["fwd_plain_ms"],
         "fwd_bound_ms": t["fwd_bound_ms"],
-        "deterministic_ms": t["fwd_bwd_kernel_det_ms"]}]}))
+        "deterministic_ms": t["fwd_bwd_kernel_det_ms"],
+        "fwd_bwd_x_ms": t["fwd_bwd_x_kernel_ms"],
+        "fwd_bwd_x_bound_ms": t["fwd_bwd_x_bound_ms"],
+        "bwd_x_ms": t["bwd_x_kernel_ms"], "bwd_x_bound_ms": t["bwd_x_bound_ms"],
+        "animate_points": a["rows"], "animate_fwd_ms": a["fwd_kernel_ms"],
+        "animate_fwd_bound_ms": a["fwd_bound_ms"],
+        "features_checked": sorted({2, *(c.n_features
+                                         for c in encode_grids())})}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

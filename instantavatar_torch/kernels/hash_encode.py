@@ -8,6 +8,10 @@ tiny-cuda-nn's HashGrid in the reference). The plain PyTorch version is
 tensor there and a CUDA tensor here. ``hash_encode_cuda`` takes CUDA
 tensors only and raises on anything else: there is no fallback.
 
+The kernels take any number of features per row F (vector rows for F =
+1, 2, 4, 8; a feature loop for the rest) and 1-64 levels; the one limit
+is L * T < 2^31 (the deterministic backward's int32 rows).
+
 Backward: the table's gradient is a dense fp32 (L, T, F) tensor, zeroed
 and then scatter-added with fp32 atomics; under
 ``torch.use_deterministic_algorithms`` each (point, level, corner)
@@ -15,9 +19,9 @@ entry's row is written instead, sorted stably with ``torch.sort`` and
 summed run by run in point order, in fixed chunks (bit-identical from
 run to run, also inside a CUDA graph). Entries whose gradient is zero
 are skipped in both: they add nothing. The points' gradient (only when
-asked for) is one thread per point, deterministic. Nothing per (point,
-level) is saved: the backward recomputes corners and weights from the
-points.
+asked for) is four lanes per point, summed in a fixed order:
+deterministic. Nothing per (point, level) is saved: the backward
+recomputes corners and weights from the points.
 
 The library is built at first use (``kernels/build.py``).
 """
@@ -37,8 +41,9 @@ __all__ = ["hash_encode_cuda", "build_hash_library"]
 
 _SOURCES = (Path(__file__).resolve().parent.parent / "csrc"
             / "hash_encode.cu",)
-_MAX_LEVELS = 32         # csrc/hash_encode.cu: kMaxLevels
-_FEATURES = 2            # the F compiled in (float2 rows)
+_MAX_LEVELS = 64         # csrc/hash_encode.cu: kMaxLevels
+# the alignment of a table whose rows the kernels load as vectors
+_ROW_ALIGN = {2: 8, 4: 16, 8: 16}
 
 
 @functools.lru_cache(maxsize=None)
@@ -59,7 +64,7 @@ def _load(path: Path) -> ctypes.CDLL:
             ("hash_encode_backward_atomic", [P, P, P, LL, *levels]),
             ("hash_encode_rows", [P, P, P, LL, *levels]),
             ("hash_encode_run_pieces", [P, P, P, P, LL, P, P, P, *levels]),
-            ("hash_encode_run_join", [P, LL, P, P, P]),
+            ("hash_encode_run_join", [P, LL, P, P, P, I]),
             ("hash_encode_backward_points", [P, P, P, P, LL, *levels])):
         fn = getattr(lib, name)
         fn.argtypes = args + [P]   # the stream
@@ -109,7 +114,7 @@ def _forward(table: torch.Tensor, x: torch.Tensor, res: tuple
 
 def _table_grad(x: torch.Tensor, g: torch.Tensor, shape, res: tuple
                 ) -> torch.Tensor:
-    L = shape[0]
+    L, _, F = shape
     n = x.shape[0]
     grad = torch.zeros(shape, dtype=torch.float32, device=x.device)
     if not n:
@@ -123,14 +128,14 @@ def _table_grad(x: torch.Tensor, g: torch.Tensor, shape, res: tuple
         # row); the sums are the kernels'
         rows, perm = torch.sort(rows, stable=True)
         chunk = build_hash_library().lib.hash_encode_run_chunk()
-        head, tail = torch.empty((2, -(-rows.numel() // chunk), 2),
+        head, tail = torch.empty((2, -(-rows.numel() // chunk), F),
                                  dtype=torch.float32, device=x.device)
         _launch("hash_encode_run_pieces", x.device, n, x.data_ptr(),
                 g.data_ptr(), rows.data_ptr(), perm.data_ptr(), rows.numel(),
                 grad.data_ptr(), head.data_ptr(), tail.data_ptr(), *lv)
         _launch("hash_encode_run_join", x.device, n, rows.data_ptr(),
                 rows.numel(), grad.data_ptr(), head.data_ptr(),
-                tail.data_ptr())
+                tail.data_ptr(), F)
     else:
         _launch("hash_encode_backward_atomic", x.device, n, x.data_ptr(),
                 g.data_ptr(), grad.data_ptr(), n, *lv)
@@ -163,8 +168,8 @@ class _HashEncode(torch.autograd.Function):
     def backward(ctx, grad):
         x, table = ctx.saved_tensors
         g = grad.float().contiguous()
-        if g.data_ptr() % 8:   # the kernels read float2 rows
-            g = g.clone()
+        if g.data_ptr() % _ROW_ALIGN.get(ctx.table_shape[2], 4):
+            g = g.clone()   # the kernels read its rows as vectors
         gt = gx = None
         if ctx.needs_input_grad[0]:
             gt = _table_grad(x, g, ctx.table_shape, ctx.res)
@@ -184,10 +189,8 @@ def _check(table: torch.Tensor, x: torch.Tensor,
         raise ValueError(f"hash_encode_cuda: table must be (L, T, F), got "
                          f"{tuple(table.shape)}")
     L, T, F = table.shape
-    if F != _FEATURES:
-        raise ValueError(f"hash_encode_cuda: {F} features per row; "
-                         f"csrc/hash_encode.cu is compiled for "
-                         f"F = {_FEATURES}")
+    if F < 1:
+        raise ValueError(f"hash_encode_cuda: {F} features per row")
     if T <= 0 or T & (T - 1):
         raise ValueError(f"hash_encode_cuda: table size {T} is not a power "
                          f"of two")
@@ -204,8 +207,10 @@ def _check(table: torch.Tensor, x: torch.Tensor,
     for name, t in (("table", table), ("x", x)):
         if not t.is_contiguous():
             raise ValueError(f"hash_encode_cuda: {name} must be contiguous")
-    if table.data_ptr() % 8:
-        raise ValueError("hash_encode_cuda: table must be 8-byte aligned")
+    align = _ROW_ALIGN.get(F, 4)
+    if table.data_ptr() % align:
+        raise ValueError(f"hash_encode_cuda: a table of {F}-float rows "
+                         f"must be {align}-byte aligned")
     if table.device.type != "cuda" or x.device != table.device:
         raise ValueError(f"hash_encode_cuda: table on {table.device} and x "
                          f"on {x.device}; both must be on one CUDA device")
@@ -214,10 +219,10 @@ def _check(table: torch.Tensor, x: torch.Tensor,
 def hash_encode_cuda(table: torch.Tensor, x: torch.Tensor,
                      resolutions: Sequence[int]) -> torch.Tensor:
     """Points x (N, 3) fp32 (clamped to [0, 1]^3) and the (L, T, F) fp32
-    table, both contiguous on one CUDA device, F = 2, T a power of two, L
-    <= 32, level l at ``resolutions[l]`` -> (N, L * F) fp32 features,
-    level-major, differentiable in the table and in x. N = 0 launches
-    nothing. Anything else raises."""
+    table, both contiguous on one CUDA device, F >= 1, T a power of two,
+    1 <= L <= 64 and L * T < 2^31, level l at ``resolutions[l]`` -> (N,
+    L * F) fp32 features, level-major, differentiable in the table and in
+    x. N = 0 launches nothing. Anything else raises."""
     _check(table, x, resolutions)
     res = tuple(int(r) for r in resolutions)
     if torch.is_grad_enabled() and (table.requires_grad or x.requires_grad):

@@ -219,29 +219,42 @@ def test_hash_encode_on_card_matches_cpu(cuda):
     torch.testing.assert_close(outs[0], outs[1], rtol=1e-5, atol=1e-5)
 
 
+# the feature widths: the compiled vector rows (1, 2, 4, 8) and one that
+# the feature loop takes (3)
+FEATURES = [1, 2, 4, 8, 3]
+
+
+def _grid(features: int):
+    from instantavatar_torch.ops import HashGridConfig
+    return HashGridConfig(n_features=features)
+
+
+@pytest.mark.parametrize("F", FEATURES)
 @pytest.mark.parametrize("n", [1, 17, 2 ** 19 + 1])
-def test_hash_encode_kernel_matches_plain_on_card(cuda, n):
+def test_hash_encode_kernel_matches_plain_on_card(cuda, n, F):
     """The hash-encode kernel against ``hash_encode_ref`` and
     ``hash_encode_backward_ref`` on the card, on numpy-seeded inputs with
-    boundary, lattice and out-of-range points: features within
-    ENCODE_FEAT_TOL absolute, the table's and the points' gradients
-    within ENCODE_GRAD_RTOL L2-relative (fp32 atomics sum in another
-    order); one forward and two backward launches."""
-    r = encode_check(cuda, n, seed=n)
+    boundary, lattice and out-of-range points, at the default grid with F
+    features per row: features within ENCODE_FEAT_TOL absolute, the
+    table's and the points' gradients within ENCODE_GRAD_RTOL L2-relative
+    (fp32 atomics sum in another order); one forward and two backward
+    launches."""
+    r = encode_check(cuda, n, seed=n, cfg=_grid(F))
     assert r["launches"] == 3
     assert r["feat_err"] <= ENCODE_FEAT_TOL, r
     assert r["grad_table_rel"] <= ENCODE_GRAD_RTOL, r
     assert r["grad_x_rel"] <= ENCODE_GRAD_RTOL, r
 
 
-def test_hash_encode_deterministic_backward_on_card(cuda):
+@pytest.mark.parametrize("F", FEATURES)
+def test_hash_encode_deterministic_backward_on_card(cuda, F):
     """Under deterministic algorithms the table's gradient (rows sorted,
     runs summed in point order, in chunks) is bit-identical on two runs,
-    and within ENCODE_GRAD_RTOL of the plain version; the rows, the run
-    pieces, their join and the points' gradient are four launches beside
-    the forward."""
-    one = encode_check(cuda, 70_001, seed=3, deterministic=True, keep=True)
-    two = encode_check(cuda, 70_001, seed=3, deterministic=True, keep=True)
+    and within ENCODE_GRAD_RTOL of the plain version, at F features per
+    row; the rows, the run pieces, their join and the points' gradient
+    are four launches beside the forward."""
+    one, two = (encode_check(cuda, 70_001, seed=3, deterministic=True,
+                             keep=True, cfg=_grid(F)) for _ in range(2))
     assert one["launches"] == 5
     assert one["grad_table_rel"] <= ENCODE_GRAD_RTOL, one
     assert one["grad_x_rel"] <= ENCODE_GRAD_RTOL, one
@@ -249,16 +262,18 @@ def test_hash_encode_deterministic_backward_on_card(cuda):
         assert torch.equal(one[k], two[k]), k
 
 
+@pytest.mark.parametrize("F", FEATURES)
 @pytest.mark.parametrize("deterministic", [False, True])
-def test_hash_encode_kernel_in_cuda_graph(cuda, deterministic):
-    """The kernel, forward and backward, captured in a CUDA graph: each
-    replay equals the eager call (bit for bit but for the atomic table
-    gradient, within ENCODE_GRAD_RTOL), and the graph's launches, taken
-    off the counters at capture, come back once per replay."""
+def test_hash_encode_kernel_in_cuda_graph(cuda, deterministic, F):
+    """The kernel, forward and backward, captured in a CUDA graph at F
+    features per row: each replay equals the eager call (bit for bit but
+    for the atomic table gradient, within ENCODE_GRAD_RTOL), and the
+    graph's launches, taken off the counters at capture, come back once
+    per replay."""
     from instantavatar_torch.kernels import add_replay, captured_counts
-    from instantavatar_torch.ops import HashGridConfig, level_resolutions
-    res = level_resolutions(HashGridConfig())
-    table, x, ct = encode_inputs(5_000, 11, cuda)
+    from instantavatar_torch.ops import level_resolutions
+    res = level_resolutions(_grid(F))
+    table, x, ct = encode_inputs(5_000, 11, cuda, _grid(F))
     tt, xt = table.requires_grad_(), x.requires_grad_()
 
     def body():
@@ -292,6 +307,20 @@ def test_hash_encode_kernel_in_cuda_graph(cuda, deterministic):
         else:
             rel = (static[1] - eager[1]).norm() / eager[1].norm()
             assert float(rel) <= ENCODE_GRAD_RTOL
+
+
+def test_hash_encode_kernel_other_grids_on_card(cuda):
+    """The kernel against the plain version on ``chip_smoke``'s other
+    grids (40 levels among them, past the earlier limit of 32), default and
+    deterministic mode, by the same tolerances."""
+    from chip_smoke import encode_grids
+    for cfg in encode_grids():
+        for det in (False, True):
+            r = encode_check(cuda, 3_001, seed=4, deterministic=det, cfg=cfg)
+            assert r["launches"] == (5 if det else 3)
+            assert r["feat_err"] <= ENCODE_FEAT_TOL, (cfg, r)
+            assert r["grad_table_rel"] <= ENCODE_GRAD_RTOL, (cfg, r)
+            assert r["grad_x_rel"] <= ENCODE_GRAD_RTOL, (cfg, r)
 
 
 def test_hash_encode_kernel_nan_point(cuda):

@@ -5,14 +5,17 @@ runs only on the card; ``tests/test_torch_cuda.py`` holds it there):
     against ``jax.grad`` of JAX's ``hash_encode``, 1e-5 L2-relative (the
     table's and the points' gradient, the 0.5 clip gradient at exactly 0
     and 1 included), at the default grid and at a small grid with dense
-    and hashed levels;
+    and hashed levels; and at the small grid with F = 1, 2, 3, 4 and 8
+    features per row, ``hash_encode_ref`` against JAX's ``hash_encode``
+    (1e-6) and the backward against ``jax.grad`` (1e-5);
 (b) the deterministic backward's plan (rows sorted stably, the sorted
     entries cut into chunks of 32, each run's piece in a chunk summed in
     point order, then a run's pieces in chunk order), modelled here in
     plain torch, against ``index_add_``, 1e-6 L2-relative, and
     bit-identical to itself on two runs;
 (c) dispatch: a CPU tensor runs ``hash_encode_ref``; the kernel wrapper's
-    argument checks raise before anything is built; nothing falls back;
+    argument checks raise before anything is built, and pass any F >= 1
+    and up to 64 levels with L * T < 2^31; nothing falls back;
 (d) the graph modules' shared counter helper.
 """
 import os
@@ -95,6 +98,34 @@ def test_backward_ref_matches_jax_grad(grid, n):
     edge = slice(0, 32)
     assert _rel(g_x.numpy()[edge], np.asarray(jg_x)[edge]) <= 1e-5
     assert np.abs(np.asarray(jg_x)[edge]).max() > 0
+
+
+@pytest.mark.parametrize("F", [1, 2, 3, 4, 8])
+def test_feature_widths_match_jax(F):
+    """(a) At the small grid with F features per row (every width the
+    kernel compiles, and 3, which its feature loop takes):
+    ``hash_encode_ref`` against JAX's ``hash_encode``, features within
+    1e-6, and ``hash_encode_backward_ref`` against ``jax.grad`` of it, the
+    table's and the points' gradients within 1e-5 L2-relative."""
+    kw = dict(SMALL, n_features=F)
+    cfg = HashGridConfig(**kw)
+    jcfg = jax_hashgrid.HashGridConfig(**kw)
+    table, x, ct = _inputs(cfg, 1024, seed=F)
+    feats = hash_encode_ref(torch.as_tensor(table), torch.as_tensor(x), cfg)
+    jfeats = jax_hashgrid.hash_encode(jnp.asarray(table), jnp.asarray(x),
+                                      jcfg)
+    assert feats.shape == (1024, 4 * F)
+    np.testing.assert_allclose(feats.numpy(), np.asarray(jfeats), rtol=0,
+                               atol=1e-6)
+
+    def jf(tab, xx):
+        return jnp.sum(jax_hashgrid.hash_encode(tab, xx, jcfg) * ct)
+    jg_tab, jg_x = jax.jit(jax.grad(jf, argnums=(0, 1)))(jnp.asarray(table),
+                                                         jnp.asarray(x))
+    g_tab, g_x = hash_encode_backward_ref(
+        torch.as_tensor(table), torch.as_tensor(x), torch.as_tensor(ct), cfg)
+    assert _rel(g_tab.numpy(), jg_tab) <= 1e-5
+    assert _rel(g_x.numpy(), jg_x) <= 1e-5
 
 
 def test_backward_ref_matches_autograd_of_ref():
@@ -204,8 +235,8 @@ def _bad(kind: str):
         return t.double(), xx, res, TypeError
     if kind == "x_dtype":
         return t, xx.half(), res, TypeError
-    if kind == "features":
-        return t.repeat(1, 1, 2), xx, res, ValueError
+    if kind == "features":                       # an empty feature axis
+        return t[:, :, :0].contiguous(), xx, res, ValueError
     if kind == "not_pow2":
         return t[:, :3000].contiguous(), xx, res, ValueError
     if kind == "non_contiguous":
@@ -222,8 +253,8 @@ def _bad(kind: str):
                                   "non_contiguous", "levels", "x_shape",
                                   "cpu"])
 def test_kernel_wrapper_checks_raise_before_build(monkeypatch, kind):
-    """(c) The kernel wrapper's checks (dtype, F != 2, T not a power of
-    two, a non-contiguous table, the levels, x's shape, and CPU tensors)
+    """(c) The kernel wrapper's checks (dtype, no features, T not a power
+    of two, a non-contiguous table, the levels, x's shape, and CPU tensors)
     raise before anything is built; ``hash_encode`` sends a CUDA-less
     mix of devices to the wrapper, which raises: nothing falls back."""
     def no_build():
@@ -236,6 +267,27 @@ def test_kernel_wrapper_checks_raise_before_build(monkeypatch, kind):
         cfg = HashGridConfig(**SMALL)
         with pytest.raises(ValueError):
             hash_encode(table, x.to("meta"), cfg)
+
+
+@pytest.mark.parametrize("F,L,log2_T,ok", [
+    (1, 16, 19, True), (3, 16, 19, True), (8, 16, 19, True),
+    (2, 40, 14, True), (5, 64, 24, True),
+    (2, 64, 25, False), (2, 65, 10, False)])
+def test_kernel_wrapper_takes_any_width_and_64_levels(monkeypatch, F, L,
+                                                       log2_T, ok):
+    """(c) The wrapper's checks pass any F >= 1 and 1-64 levels with L * T
+    < 2^31, before anything is built: on (meta) tensors right in all but
+    the device, the only objection is the device; 64 levels of 2^25 rows
+    (L * T = 2^31) and 65 levels raise on their own."""
+    def no_build():
+        raise AssertionError("built before the checks")
+    monkeypatch.setattr(kernel_mod, "build_hash_library", no_build)
+    table = torch.empty((L, 2 ** log2_T, F), device="meta")
+    x = torch.empty((8, 3), device="meta")
+    res = [16] * L
+    match = "one CUDA device" if ok else "levels"
+    with pytest.raises(ValueError, match=match):
+        kernel_mod.hash_encode_cuda(table, x, res)
 
 
 def test_counter_helper_adds_each_kernels_replays():
