@@ -37,6 +37,7 @@ from typing import Any
 import numpy as np
 
 from ..utils.image_io import read_png, resize_linear
+from ..utils.profiling import span
 from .rays import make_ray_basis, make_ray_grid, near_far_from_transl
 from .samplers import EdgeSampler, PatchSampler
 
@@ -73,24 +74,25 @@ class _Split:
         return {k: v.copy() for k, v in self.smpl_params.items()}
 
     def __getitem__(self, idx: int) -> dict[str, Any]:
-        img, msk = self._frame(idx)
-        if self.split == "train":
-            bg = self.bg_rng.random(img.shape, dtype=np.float32)
-        else:
-            bg = np.ones_like(img)
-        img = img * msk[..., None] + (1 - msk[..., None]) * bg
+        with span("data.item"):
+            img, msk = self._frame(idx)
+            if self.split == "train":
+                bg = self.bg_rng.random(img.shape, dtype=np.float32)
+            else:
+                bg = np.ones_like(img)
+            img = img * msk[..., None] + (1 - msk[..., None]) * bg
 
-        if self.sampler is not None:
-            msk, img, rays_o, rays_d, bg = self.sampler.sample(
-                msk, img, self.rays_o, self.rays_d, bg)
-        else:
-            rays_o = self.rays_o.reshape(-1, 3)
-            rays_d = self.rays_d.reshape(-1, 3)
-            img = img.reshape(-1, 3)
-            msk = msk.reshape(-1)
-            bg = bg.reshape(-1, 3)
-        return self._datum(idx, img.astype(np.float32), msk, bg, rays_o,
-                           rays_d)
+            if self.sampler is not None:
+                msk, img, rays_o, rays_d, bg = self.sampler.sample(
+                    msk, img, self.rays_o, self.rays_d, bg)
+            else:
+                rays_o = self.rays_o.reshape(-1, 3)
+                rays_d = self.rays_d.reshape(-1, 3)
+                img = img.reshape(-1, 3)
+                msk = msk.reshape(-1)
+                bg = bg.reshape(-1, 3)
+            return self._datum(idx, img.astype(np.float32), msk, bg, rays_o,
+                               rays_d)
 
     def _datum(self, idx: int, rgb, alpha, bg, rays_o, rays_d
                ) -> dict[str, Any]:

@@ -61,6 +61,7 @@ import torch
 
 from ..kernels.counters import add_replay, captured_counts
 from ..render.density_grid import DensityGridState
+from ..utils.profiling import span
 from .model import TrainState
 
 __all__ = ["FrameGraphs", "TABLE_SETS"]
@@ -201,10 +202,12 @@ class FrameGraphs:
         ``_eval_render`` (none). Returns copies of its outputs (rgb,
         depth, alpha, counter) and of its counts (None for
         ``_eval_render``)."""
-        sig = self._signature(state)
-        if sig != self.signature:
-            self._reset(sig)
-        sbatch, sgrid, layout = self._stage(INPUTS[program], batch, grid)
+        with span("frame.stage"):
+            sig = self._signature(state)
+            if sig != self.signature:
+                self._reset(sig)
+            sbatch, sgrid, layout = self._stage(INPUTS[program], batch,
+                                                grid)
         image_shape, plan, *budgets = args or (None, None)
         bake = None if plan is None else plan.bake
         if budgets and not bake:
@@ -213,10 +216,15 @@ class FrameGraphs:
                    tuple(budgets), bake,
                    None if plan is None else self._table_set(plan.tables),
                    layout)
-        g = self.graphs.get(key) or self._capture(
-            key, (state, sbatch, sgrid, *args))
-        g.graph.replay()
+        g = self.graphs.get(key)
+        if g is None:
+            with span("frame.capture"):
+                g = self._capture(key, (state, sbatch, sgrid, *args))
+        with span("frame.replay", tag="bake" if bake else "reuse",
+                  device=True):
+            g.graph.replay()
         self.replays += 1
         add_replay(g.launched)
-        return ({k: v.clone() for k, v in g.out.items()},
-                None if g.counts is None else g.counts.clone())
+        with span("frame.outputs"):
+            return ({k: v.clone() for k, v in g.out.items()},
+                    None if g.counts is None else g.counts.clone())

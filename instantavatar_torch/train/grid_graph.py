@@ -44,6 +44,7 @@ import torch
 
 from ..kernels.counters import add_replay, captured_counts
 from ..render.density_grid import DensityGridState
+from ..utils.profiling import span
 from .model import TrainState
 
 __all__ = ["GridGraphs"]
@@ -160,17 +161,20 @@ class GridGraphs:
         """One grid build of ``kind`` ("smpl_shell": ``build_pose_grid``,
         "density": ``build_test_grid``) as one graph replay; returns
         copies of the grid's tensors."""
-        staged, layout = self._stage(batch)
-        args = (state, staged)
-        if kind == "density":
-            args += (self._stage_jitter(jitter),)
+        with span("grid.stage"):
+            staged, layout = self._stage(batch)
+            args = (state, staged)
+            if kind == "density":
+                args += (self._stage_jitter(jitter),)
         sig = self._signature(kind, state)
         key = (kind, layout)
         g = self.graphs.get(key)
         if g is None or g.signature != sig:
             self.graphs.pop(key, None)   # its memory back to the pool
-            g = self.graphs[key] = self._capture(kind, args, sig)
-        g.graph.replay()
+            with span("grid.capture"):
+                g = self.graphs[key] = self._capture(kind, args, sig)
+        with span("grid.replay", tag=kind, device=True):
+            g.graph.replay()
         self.replays += 1
         add_replay(g.launched)
         return DensityGridState(*(t.clone() for t in g.out))

@@ -122,6 +122,7 @@ from ..render.density_grid import (DensityGridState, initialize_grid,
 from ..render.raymarcher import (Rays, compact_samples, ray_aabb,
                                  render_rays, render_rays_probed,
                                  render_rays_windows, sample_z)
+from ..utils.profiling import count, span
 from .optim import GroupedAdam, OptimizerSpec, make_optimizer
 from .smpl_params import SMPLParams, lookup_frame
 
@@ -186,6 +187,8 @@ class RenderSession:
     once per pose. The tables live at fixed addresses (``tables``, each
     with a spare last row for the bake's padding); a bake writes them in
     place, so a captured frame that reuses them reads the last bake.
+    ``frames`` counts the frames enqueued, each frame's sequence number
+    (its spans' request id, ``utils/profiling.py``).
     Pass one session through a frame sequence."""
 
     def __init__(self) -> None:
@@ -197,6 +200,7 @@ class RenderSession:
         self.last_bake: tuple | None = None
         # (key, DensityGridState, objects the key identifies)
         self.last_grid: tuple | None = None
+        self.frames = 0
 
 
 class _BakePlan(NamedTuple):
@@ -778,8 +782,9 @@ class AvatarModel:
         graph = self._graphed(graph)
         losses = {}
         for i, d in enumerate(draws):
-            state, losses = self._run_step(
-                state, {k: v[i] for k, v in batches.items()}, d, graph)
+            with span("step.run", state.step):
+                state, losses = self._run_step(
+                    state, {k: v[i] for k, v in batches.items()}, d, graph)
         return state, losses
 
     def build_pose_grid(self, state: TrainState, batch, *,
@@ -1446,50 +1451,60 @@ class AvatarModel:
         block (at most ``prepass_steps``), the bake's ``cell_budget`` (the
         learned one up to G^3), the ray-bundle modes' ``ray_budget_frac``
         of the rays."""
-        flat = self._frame_is_flat(batch, image_shape)
-        bg = batch.get("bg_color")
-        if isinstance(bg, np.ndarray) and bg.size > 3:
-            # a uniform per-pixel background ships as one colour (JAX's)
-            flat_bg = bg.reshape(-1, 3)
-            if bool((flat_bg == flat_bg[:1]).all()):
-                batch = {**batch, "bg_color": flat_bg[0].copy()}
         own = session is None
         if own:   # this call's: the priors, no memo across calls
             session = RenderSession()
             session.tables = self._call_tables
-        key, refs = self._frame_key(state, batch)
-        with torch.no_grad():
-            rbatch = self._resolve_batch(state, batch)
-        if grid is None:
-            grid = self._frame_grid(state, batch, session, key, refs, graph)
-        G3 = self.grid_size ** 3
-        if flat:
-            H, W = image_shape
-            n = H * W
-            p = self._block_size(H, W)
-        else:
-            n = int(np.prod(np.shape(batch["rays_o"])[:-1]))
-            p = (self._block_size(*image_shape) if image_shape is not None
-                 and image_shape[0] * image_shape[1] == n else 1)
-        prepass_shape = None if p == 1 else (*image_shape, p)
-        skey = (n, prepass_shape)
-        rec = dict(state=state, batch=rbatch, grid=grid,
-                   image_shape=image_shape, session=session, key=key,
-                   refs=refs, skey=skey, n=n, flat=flat, chunk=chunk,
-                   graph=self._graphed(graph),
-                   cell_budget=min(session.cell_budget.get(skey)
-                                   or self.cell_budget, G3))
-        if flat:
-            nb = n // (p * p)
-            hint = session.samp_budget.get(skey)
-            m = hint if hint is not None else int(nb * self.samples_per_ray)
-            rec["samp_budget"] = self._round_budget(
-                min(max(m, 1), nb * self.prepass_steps), chunk)[0]
-        else:
-            budget, rec["chunk_eff"] = self._round_budget(
-                max(int(n * ray_budget_frac), 1), chunk)
-            rec["ray_budget"] = min(budget, self._round_budget(n, chunk)[0])
-        self._dispatch_frame(rec)
+        seq, session.frames = session.frames, session.frames + 1
+        with span("frame.enqueue", seq):
+            flat = self._frame_is_flat(batch, image_shape)
+            bg = batch.get("bg_color")
+            if isinstance(bg, np.ndarray) and bg.size > 3:
+                # a uniform per-pixel background ships as one colour
+                # (JAX's)
+                flat_bg = bg.reshape(-1, 3)
+                if bool((flat_bg == flat_bg[:1]).all()):
+                    batch = {**batch, "bg_color": flat_bg[0].copy()}
+            with span("frame.key"):
+                key, refs = self._frame_key(state, batch)
+                with torch.no_grad():
+                    rbatch = self._resolve_batch(state, batch)
+            if grid is None:
+                with span("grid.build"):
+                    grid = self._frame_grid(state, batch, session, key, refs,
+                                            graph)
+            G3 = self.grid_size ** 3
+            if flat:
+                H, W = image_shape
+                n = H * W
+                p = self._block_size(H, W)
+            else:
+                n = int(np.prod(np.shape(batch["rays_o"])[:-1]))
+                p = (self._block_size(*image_shape)
+                     if image_shape is not None
+                     and image_shape[0] * image_shape[1] == n else 1)
+            prepass_shape = None if p == 1 else (*image_shape, p)
+            skey = (n, prepass_shape)
+            rec = dict(state=state, batch=rbatch, grid=grid,
+                       image_shape=image_shape, session=session, key=key,
+                       refs=refs, skey=skey, n=n, flat=flat, chunk=chunk,
+                       seq=seq,
+                       graph=self._graphed(graph),
+                       cell_budget=min(session.cell_budget.get(skey)
+                                       or self.cell_budget, G3))
+            if flat:
+                nb = n // (p * p)
+                hint = session.samp_budget.get(skey)
+                m = (hint if hint is not None
+                     else int(nb * self.samples_per_ray))
+                rec["samp_budget"] = self._round_budget(
+                    min(max(m, 1), nb * self.prepass_steps), chunk)[0]
+            else:
+                budget, rec["chunk_eff"] = self._round_budget(
+                    max(int(n * ray_budget_frac), 1), chunk)
+                rec["ray_budget"] = min(budget,
+                                        self._round_budget(n, chunk)[0])
+            self._dispatch_frame(rec)
         if own:
             self._call_tables = session.tables
         return rec
@@ -1498,22 +1513,28 @@ class AvatarModel:
         """Enqueue ``rec``'s frame at its budgets: one graph replay (on a
         CUDA model) or the eager program; then the copy of its counts to
         the host behind an event."""
-        session, use_cache = rec["session"], self._use_cache()
-        plan = (self._bake_plan(session, rec["key"], rec["refs"],
-                                rec["grid"], rec["cell_budget"], rebake)
-                if use_cache else None)
-        args = (rec["state"], rec["batch"], rec["grid"], rec["image_shape"],
-                plan)
-        if rec["flat"]:
-            out, counts = self._frame_program("_flat_frame", rec["graph"])(
-                *args, rec["samp_budget"], rec["cell_budget"])
-        else:
-            out, counts = self._frame_program("_rays_frame", rec["graph"])(
-                *args, rec["chunk_eff"], rec["ray_budget"],
-                rec["cell_budget"])
-        self._commit_bake(session, plan)
-        rec.update(out=out, counts=_fetch_counts(counts),
-                   limit=plan.limit if use_cache else math.inf)
+        # a frame that has outputs already is re-rendered
+        with span("frame.dispatch", rec["seq"],
+                  "rerender" if "out" in rec else "first"):
+            session, use_cache = rec["session"], self._use_cache()
+            with span("frame.bake_plan"):
+                plan = (self._bake_plan(session, rec["key"], rec["refs"],
+                                        rec["grid"], rec["cell_budget"],
+                                        rebake) if use_cache else None)
+            args = (rec["state"], rec["batch"], rec["grid"],
+                    rec["image_shape"], plan)
+            if rec["flat"]:
+                out, counts = self._frame_program(
+                    "_flat_frame", rec["graph"])(
+                    *args, rec["samp_budget"], rec["cell_budget"])
+            else:
+                out, counts = self._frame_program(
+                    "_rays_frame", rec["graph"])(
+                    *args, rec["chunk_eff"], rec["ray_budget"],
+                    rec["cell_budget"])
+            self._commit_bake(session, plan)
+            rec.update(out=out, counts=_fetch_counts(counts),
+                       limit=plan.limit if use_cache else math.inf)
 
     def _finish_frame(self, rec: dict) -> dict:
         """Fetch an in-flight frame's counts (its one host read) and
@@ -1525,51 +1546,56 @@ class AvatarModel:
         ``_finish_frame``). Returns rgb (n, 3), depth, alpha, counter
         (n,) as device tensors, with the kept (evaluated) samples
         ``n_samples`` and occupied cells ``n_occ``."""
-        n_hit, n_occ, n_samples = rec["counts"]()
-        session, skey = rec["session"], rec["skey"]
-        n, chunk = rec["n"], rec["chunk"]
+        with span("frame.finish", rec["seq"]):
+            with span("frame.wait"):
+                n_hit, n_occ, n_samples = rec["counts"]()
+            session, skey = rec["session"], rec["skey"]
+            n, chunk = rec["n"], rec["chunk"]
 
-        def over(n_hit, n_occ):
-            ray_over = (n_hit > rec["samp_budget"] if rec["flat"]
-                        else rec["ray_budget"] < n
-                        and n_hit > rec["ray_budget"])
-            return ray_over, n_occ > rec["limit"]
+            def over(n_hit, n_occ):
+                ray_over = (n_hit > rec["samp_budget"] if rec["flat"]
+                            else rec["ray_budget"] < n
+                            and n_hit > rec["ray_budget"])
+                return ray_over, n_occ > rec["limit"]
 
-        for _ in range(4):
-            _high_water(session.cell_budget, skey, min(
-                self.grid_size ** 3,
-                max(4096, -(-int(n_occ * 1.15) // 4096) * 4096)))
-            if rec["flat"]:
-                _high_water(session.samp_budget, skey,
-                            max(8192, int(n_hit * 1.2)))
-            ray_over, cell_over = over(n_hit, n_occ)
-            if not (ray_over or cell_over):
-                break
-            # the budgets just learned hold the counts: the re-render and
-            # the next frames replay one graph (JAX re-renders at the
-            # counts, rounded)
-            if ray_over and rec["flat"]:
-                rec["samp_budget"] = self._round_budget(
-                    max(n_hit, session.samp_budget[skey]), chunk)[0]
-            elif ray_over:
-                rec["ray_budget"], rec["chunk_eff"] = \
-                    self._round_budget(n, chunk)
-            if cell_over:
-                rec["cell_budget"] = max(-(-n_occ // 4096) * 4096,
-                                         session.cell_budget[skey])
-            self._dispatch_frame(rec, rebake=cell_over)
-            n_hit, n_occ, n_samples = rec["counts"]()
-        else:
-            ray_over, cell_over = over(n_hit, n_occ)
-            if ray_over or cell_over:
-                budget = rec["samp_budget" if rec["flat"] else "ray_budget"]
-                warnings.warn(
-                    f"frame still overflowed after 4 re-render passes (hits "
-                    f"{n_hit} vs budget {budget}, occupied cells {n_occ} vs "
-                    f"{rec['limit']}); the returned image is truncated "
-                    f"(overflowed rays/samples rendered as background)",
-                    RuntimeWarning, stacklevel=3)
-        return {**rec["out"], "n_samples": n_samples, "n_occ": n_occ}
+            for _ in range(4):
+                _high_water(session.cell_budget, skey, min(
+                    self.grid_size ** 3,
+                    max(4096, -(-int(n_occ * 1.15) // 4096) * 4096)))
+                if rec["flat"]:
+                    _high_water(session.samp_budget, skey,
+                                max(8192, int(n_hit * 1.2)))
+                ray_over, cell_over = over(n_hit, n_occ)
+                if not (ray_over or cell_over):
+                    break
+                # the budgets just learned hold the counts: the re-render
+                # and the next frames replay one graph (JAX re-renders at
+                # the counts, rounded)
+                if ray_over and rec["flat"]:
+                    rec["samp_budget"] = self._round_budget(
+                        max(n_hit, session.samp_budget[skey]), chunk)[0]
+                elif ray_over:
+                    rec["ray_budget"], rec["chunk_eff"] = \
+                        self._round_budget(n, chunk)
+                if cell_over:
+                    rec["cell_budget"] = max(-(-n_occ // 4096) * 4096,
+                                             session.cell_budget[skey])
+                count("frame.rerenders")
+                self._dispatch_frame(rec, rebake=cell_over)
+                with span("frame.wait"):
+                    n_hit, n_occ, n_samples = rec["counts"]()
+            else:
+                ray_over, cell_over = over(n_hit, n_occ)
+                if ray_over or cell_over:
+                    budget = rec["samp_budget" if rec["flat"]
+                                 else "ray_budget"]
+                    warnings.warn(
+                        f"frame still overflowed after 4 re-render passes "
+                        f"(hits {n_hit} vs budget {budget}, occupied cells "
+                        f"{n_occ} vs {rec['limit']}); the returned image is "
+                        f"truncated (overflowed rays/samples rendered as "
+                        f"background)", RuntimeWarning, stacklevel=3)
+            return {**rec["out"], "n_samples": n_samples, "n_occ": n_occ}
 
     def render_frame(self, state: TrainState, batch,
                      grid: DensityGridState | None = None,

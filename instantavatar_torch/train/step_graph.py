@@ -43,6 +43,7 @@ from dataclasses import dataclass
 import torch
 
 from ..kernels.counters import add_replay, captured_counts
+from ..utils.profiling import span
 from .model import StepDraws, TrainState
 
 __all__ = ["StepGraphs", "step_body"]
@@ -131,21 +132,23 @@ class StepGraphs:
         """Copy the step's batch and draws into the static buffers,
         re-making them (and dropping the graphs) when the state's tensors
         or the inputs' shapes changed."""
-        batch = {k: torch.as_tensor(v) for k, v in batch.items()}
-        sig = self._signature(state, batch, draws)
-        if sig != self.signature:
-            self._reset(sig)
-        for k, v in batch.items():
-            if k not in self.batch:
-                self.batch[k] = torch.empty(v.shape, dtype=v.dtype,
-                                            device=self.device)
-            self.batch[k].copy_(v, non_blocking=True)
-        for k, v in draws._asdict().items():
-            if v is None:
-                continue
-            if k not in self.draws:
-                self.draws[k] = torch.empty_like(v, device=self.device)
-            self.draws[k].copy_(v, non_blocking=True)
+        with span("step.signature"):
+            batch = {k: torch.as_tensor(v) for k, v in batch.items()}
+            sig = self._signature(state, batch, draws)
+            if sig != self.signature:
+                self._reset(sig)
+        with span("step.stage"):
+            for k, v in batch.items():
+                if k not in self.batch:
+                    self.batch[k] = torch.empty(v.shape, dtype=v.dtype,
+                                                device=self.device)
+                self.batch[k].copy_(v, non_blocking=True)
+            for k, v in draws._asdict().items():
+                if v is None:
+                    continue
+                if k not in self.draws:
+                    self.draws[k] = torch.empty_like(v, device=self.device)
+                self.draws[k].copy_(v, non_blocking=True)
 
     def _static_draws(self, update: bool) -> StepDraws:
         d = self.draws
@@ -197,9 +200,14 @@ class StepGraphs:
         group's hook (see ``step_body``)."""
         self._stage(state, batch, draws)
         key = self.key(state, update, reduce)
-        g = self.graphs.get(key) or self._capture(state, key, reduce)
-        g.graph.replay()
+        g = self.graphs.get(key)
+        if g is None:
+            with span("step.capture"):
+                g = self._capture(state, key, reduce)
+        with span("step.replay", tag="update" if key[0][0] else "plain",
+                  device=True):
+            g.graph.replay()
         add_replay(g.launched)
-        losses = g.losses.clone()
-        return (state._replace(step=state.step + 1),
-                dict(zip(g.names, losses.unbind(0))))
+        with span("step.losses"):
+            losses = dict(zip(g.names, g.losses.clone().unbind(0)))
+        return state._replace(step=state.step + 1), losses

@@ -960,3 +960,54 @@ def test_frame_graph_reads_updated_parameters(cuda):
     assert float((after["rgb"] - before["rgb"]).abs().max()) > 1e-3
     for k in ("rgb", "depth", "alpha", "counter"):
         assert float((after[k] - eager[k]).abs().max()) <= 1e-6, k
+
+
+# -- the program's spans around captures ----------------------------------------
+
+def test_no_span_opens_while_a_graph_is_captured(cuda):
+    """Under a profiler: a span opened while the current stream is being
+    captured records nothing and takes no CUDA event, and the capture
+    replays; a fresh avatar's first frames capture their grid and frame
+    graphs inside ``grid.capture`` and ``frame.capture`` spans, which no
+    span opens inside, and each replay span times the device."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from instantavatar_torch.train import RenderSession
+    from instantavatar_torch.utils import profiling
+    x = torch.ones(1024, device=cuda)
+    g = torch.cuda.CUDAGraph()
+    profiling.reset()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        s = torch.cuda.Stream()
+        s.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(s):
+            y = x * 2   # warm-up
+        torch.cuda.current_stream().wait_stream(s)
+        events = profiling._REC.events_used
+        with torch.cuda.graph(g):
+            with profiling.span("inside", device=True):
+                y = x * 3
+        assert profiling._REC.events_used == events
+        g.replay()
+        torch.cuda.synchronize()
+        assert float(y[0]) == 3.0
+        av, state = _small_avatar(cuda)
+        list(av.render_frames(state, _frames_48(), image_shape=(48, 48),
+                              session=RenderSession()))
+    recs = profiling.records()
+    assert "inside" not in {r.name for r in recs}
+    by_id = {r.id: r for r in recs}
+    captures = [r for r in recs if r.name.endswith(".capture")]
+    assert {r.name for r in captures} >= {"grid.capture", "frame.capture"}
+    assert not [r for r in recs if r.parent in {c.id for c in captures}]
+    for r in recs:
+        if r.parent is not None:
+            assert by_id[r.parent].start_ns <= r.start_ns
+    s = profiling.summary()
+    # one capture span for each capture the owners count
+    assert s["spans"]["frame.capture"]["count"] == av.frame_graphs.captures
+    assert s["spans"]["grid.capture"]["count"] == av.grid_graphs.captures
+    assert av.frame_graphs.captures >= 2 and av.grid_graphs.captures >= 1
+    for name in ("frame.replay", "grid.replay"):
+        assert s["spans"][name]["device_ms"] > 0, name
+    assert set(s["spans"]["frame.replay"]["tags"]) == {"bake", "reuse"}

@@ -5,8 +5,9 @@ tetrahedra and the mesh utilities (tests/test_mesh_and_scripts.py's
 sphere, OBJ and component cases: vertices and faces identical), the
 coarse/fine volume renderer (tests/test_render.py's cases, JAX's uniforms
 passed in: 1e-5), BODY25 keypoints (the toy body's core slots and a full
-6890-vertex body: exact) and ``StepTimer`` (the same clock, the same
-summary)."""
+6890-vertex body: exact) and the tracing facility's ``trace`` and
+``summary`` (the mean step of the JAX package's ``StepTimer`` on the same
+clock)."""
 import time
 
 import jax
@@ -248,26 +249,38 @@ def test_body25_keypoints_match_jax():
         textra.body25_keypoints(_t(joints), _t(verts[:, :100]))
 
 
-# -- step timing --------------------------------------------------------------
+# -- tracing ------------------------------------------------------------------
 
 def test_step_timer_summary_matches_jax(monkeypatch, tmp_path):
-    """Both timers on the same clock (steps of 0.25, 0.5 and 0.75 s; the
-    window keeps the last two): the same tick values and summary; a tick
-    reads its tensor back. ``trace`` writes a Chrome trace."""
+    """The step timing that replaced the port's ``StepTimer``: spans
+    timed on the same clock as the JAX package's ``StepTimer`` (steps of
+    0.25, 0.5 and 0.75 s, the spans inside ``trace``) give the summary's
+    count and host ms (1.5 s over 3 steps), and the mean step the JAX
+    timer gives over the same ticks; ``trace`` writes a Chrome trace
+    holding the kernels and the spans, and ``spans.json``."""
+    import json
     from instantavatar_tpu.utils import profiling as jprof
-    ticks = iter([10.0, 10.25, 10.75, 11.5] * 2)
+    ticks = iter([10.0, 10.25, 10.75, 11.5])
     monkeypatch.setattr(time, "perf_counter", lambda: next(ticks))
-    timers = []
-    for cls, s in ((tprof.StepTimer, torch.ones(3)),
-                   (jprof.StepTimer, jnp.ones(3))):
-        tm = cls(window=2)
-        assert [tm.tick(s), tm.tick(), tm.tick(s)] == [0.25, 0.5, 0.75]
-        timers.append(tm)
-    assert timers[0].summary(rays_per_step=4096) == \
-        timers[1].summary(rays_per_step=4096)
-    assert timers[0].summary()["step_ms"] == 625.0
+    timer = jprof.StepTimer(window=3)
+    assert [timer.tick(jnp.ones(3)), timer.tick(), timer.tick()] == \
+        [0.25, 0.5, 0.75]
     monkeypatch.undo()
+    ns = iter(int(t * 1e9) for t in (10.0, 10.25, 10.25, 10.75, 10.75,
+                                     11.5))
     with tprof.trace(tmp_path / "prof") as prof:
+        monkeypatch.setattr(time, "perf_counter_ns", lambda: next(ns))
+        for step in range(3):
+            with tprof.span("step.run", step):
+                pass
+        monkeypatch.undo()
         (torch.ones(64, 64) @ torch.ones(64, 64)).sum()
+    got = tprof.summary()["spans"]["step.run"]
+    assert got["count"] == 3 and got["host_ms"] == pytest.approx(1500.0)
+    assert got["host_ms"] / got["count"] == pytest.approx(
+        timer.summary()["step_ms"])
     assert "aten::mm" in {e.key for e in prof.key_averages()}
-    assert "aten::mm" in (tmp_path / "prof" / "trace.json").read_text()
+    text = (tmp_path / "prof" / "trace.json").read_text()
+    assert "aten::mm" in text and "step.run" in text
+    spans = json.loads((tmp_path / "prof" / "spans.json").read_text())
+    assert spans["spans"]["step.run"]["count"] == 3
