@@ -8,8 +8,9 @@ weights) and its training (the same configuration as
 points a user calls, and checks it in phases:
 
   1. device: a CUDA card is required (no CPU run); TF32 is switched off;
-  2. build: the fused field-head and the hash-encode kernels are compiled
-     from csrc/ with nvcc, one nvcc per source, both started together;
+  2. build: the fused field-head, hash-encode and nearest-vertex kernels
+     are compiled from csrc/ with nvcc, one nvcc per source, all started
+     together;
   3. kernel vs its plain PyTorch version at M = 1, 17, 1000, one pass of
      the persistent grid +- 1 and 1,000,003 rows; the kernel, the plain
      version and the library yardstick (five bf16 cuBLAS GEMMs, see
@@ -100,9 +101,10 @@ points a user calls, and checks it in phases:
      all-white frame's; ms/step, peak memory), ``novel_view`` and
      ``animate`` at 540 px and ``animate`` at 67 px (the 1-pixel-block
      render); ``nearest_vertex`` (against the 192-vertex toy body and a
-     7,008-vertex one) and the LPIPS VGG trunk timed beside their bounds
-     with their device launches per call (plain PyTorch, XLA in the JAX
-     package: not TPU kernels); the committed JAX SMPL-deformer golden
+     7,008-vertex one; the kernel, held bit-equal to the plain version,
+     and the plain version) and the LPIPS VGG trunk (plain PyTorch) timed
+     beside their bounds with their device launches per call (XLA in the
+     JAX package: not TPU kernels); the committed JAX SMPL-deformer golden
      frame (48 px), PSNR-bounded; one 540 px SMPL-deformer frame with the
      voxel-triplane field, which must launch the fused head; then the
      full-width refine: ``refine`` at the script's defaults (200 + 100
@@ -167,8 +169,10 @@ points a user calls, and checks it in phases:
      kernels, busy share and host launch calls for both runs; the head's
      launches on the replays (none captured in the timed pass), the
      graphs captured and their capture time, the learned budgets against
-     the counts; a frame at priors too small for it must re-render
-     (rebaking) to the same frame. Every flat frame of phases 4-16 runs
+     the counts; in the animate sequence's timed graph pass each frame's
+     grid is one grid-graph replay and one nearest-vertex launch over its
+     64^3 cells, in the turntable's none; a frame at priors too small for
+     it must re-render (rebaking) to the same frame. Every flat frame of phases 4-16 runs
      the same budgeted, graphed frame. The animate sequence also runs
      with graph frames on eager grids (PR 11's form) beside the eager and
      the all-graph runs;
@@ -216,7 +220,12 @@ SMPL-deformer voxel-triplane frame, phase 14's eval modes, phase
 frame graphs, phase 18's DP, multi-subject and test-grid graphs and
 phase 19's ray-bundle and ``make_dp_render`` graphs; the
 NGP and triplane paths evaluate the fp32 head and launch no head
-kernel). A captured step's or frame's launches are counted once per
+kernel), and the nearest vertex with its launches in each path that
+searches it (phase 11's animate and novel_view, phase 12's animate,
+phase 13's fit, train (smpl_init), novel_view and animate runs and
+SMPL-deformer frame, phase 17's timed graph passes; each counted from 0)
+and its times at 64^3 cells against 7,008 vertices. A captured step's or
+frame's launches are counted once per
 replay, and the eager warm-up before each capture launches the kernels
 once more. ``--profile DIR`` also
 writes torch.profiler summaries and traces of two steady-state frames and
@@ -887,6 +896,22 @@ def _encode_counted(fn, paths: dict, path: str):
     return out
 
 
+# the nearest-vertex kernel's (launches, rows) per path (``knn_path``)
+KNN_PATHS: dict[str, tuple[int, int]] = {}
+
+
+@contextlib.contextmanager
+def knn_path(path: str):
+    """Count the nearest-vertex kernel's launches and rows in the block
+    from 0 (each replay of a graph that captured it included) into
+    ``KNN_PATHS[path]``."""
+    from instantavatar_torch.kernels import nearest_vertex_cuda
+    nearest_vertex_cuda.launches = nearest_vertex_cuda.rows = 0
+    yield
+    torch.cuda.synchronize()
+    KNN_PATHS[path] = (nearest_vertex_cuda.launches, nearest_vertex_cuda.rows)
+
+
 def cli_overrides(seq: Path, run: Path) -> list[str]:
     """The entry points' overrides for phase 11's sequence: its frame
     ranges (CLI_TRAIN train, CLI_VAL val, CLI_TEST test frames at full
@@ -986,12 +1011,14 @@ def cli_phase(dev, work: Path) -> dict:
 
     write_poses(work / "poses.npz")
     rd = "+render_downscale=2"
-    anim, *paths["cli_animate"] = _counted(lambda: animate.main(
-        ["--config-name", "SNARF_NGP", f"+pose_sequence={work / 'poses.npz'}",
-         rd, *over]))
-    nv, *paths["cli_novel_view"] = _counted(lambda: novel_view.main(
-        ["--config-name", "SNARF_NGP", rd, f"+n_frames={CLI_TURNTABLE}",
-         *over]))
+    with knn_path("cli_animate"):
+        anim, *paths["cli_animate"] = _counted(lambda: animate.main(
+            ["--config-name", "SNARF_NGP",
+             f"+pose_sequence={work / 'poses.npz'}", rd, *over]))
+    with knn_path("cli_novel_view"):
+        nv, *paths["cli_novel_view"] = _counted(lambda: novel_view.main(
+            ["--config-name", "SNARF_NGP", rd, f"+n_frames={CLI_TURNTABLE}",
+             *over]))
     for tag, out, frames in (("animation", anim, CLI_POSES),
                              ("novel_view", nv, CLI_TURNTABLE)):
         res[f"{tag}_ms_per_frame"] = 1e3 * out["render_s"] / out["frames"]
@@ -1662,9 +1689,11 @@ def ngp_phase(dev, work: Path) -> dict:
     # -- animate ----------------------------------------------------------
     del ftrainer, fstate
     calls, anim_x, stop = _count_encode()
-    anim = _encode_counted(lambda: animate.main(
-        ["--config-name", "SNARF_NGP", f"+pose_sequence={work / 'poses.npz'}",
-         "+render_downscale=2", *over]), paths, "ngp_animate")
+    with knn_path("ngp_animate"):
+        anim = _encode_counted(lambda: animate.main(
+            ["--config-name", "SNARF_NGP",
+             f"+pose_sequence={work / 'poses.npz'}", "+render_downscale=2",
+             *over]), paths, "ngp_animate")
     stop()
     res["animate_ms_per_frame"] = 1e3 * anim["render_s"] / anim["frames"]
     res["animate_png_ms_per_frame"] = 1e3 * anim["png_s"] / anim["frames"]
@@ -1751,16 +1780,20 @@ def count_flops(fn) -> float:
 
 def op_timings(dev, fit_x: torch.Tensor, lpips_shape, grid_size: int
                ) -> dict:
-    """Phase 13's op timings: ``nearest_vertex`` (plain PyTorch; XLA in
-    the JAX package) at the largest deform call of a fit step and at the
-    ``grid_size``^3 cells of a grid update, against the CLIs' 192-vertex toy body
-    and a 7,008-vertex toy body (SMPL's width: 6,890), and the LPIPS VGG
-    trunk forward and forward plus backward on the fit step's patch
-    stack; median of 15 (CUDA events), device launches per call, bound."""
+    """Phase 13's op timings: ``nearest_vertex`` (on the card the kernel,
+    ``csrc/nearest_vertex.cu``; XLA in the JAX package) beside its plain
+    chunked version ``nearest_vertex_ref``, at the largest deform call of
+    a fit step and at the ``grid_size``^3 cells of a grid update, against
+    the CLIs' 192-vertex toy body and a 7,008-vertex toy body (SMPL's
+    width: 6,890), the kernel held bit-equal to the plain version first;
+    and the LPIPS VGG trunk forward and forward plus backward on the fit
+    step's patch stack; median of 15 (CUDA events), device launches per
+    call, the kernel's own launches per call (its counter), bound."""
     from instantavatar_torch.body import toy_smpl_model
     from instantavatar_torch.deformers import SMPLDeformer
+    from instantavatar_torch.kernels import nearest_vertex_cuda
     from instantavatar_torch.losses import load_lpips
-    from instantavatar_torch.ops import nearest_vertex
+    from instantavatar_torch.ops import nearest_vertex, nearest_vertex_ref
     out = {}
     g = np.random.default_rng(5)
     pose = [torch.as_tensor(a, dtype=torch.float32, device=dev) for a in (
@@ -1779,22 +1812,40 @@ def op_timings(dev, fit_x: torch.Tensor, lpips_shape, grid_size: int
             .detach()
         for call, x in (("fit_step_call", fit_x), ("grid_cells", cells)):
             M, V = x.shape[0], verts.shape[0]
-
-            def fn():
-                nearest_vertex(x, verts)
-            for _ in range(3):
-                fn()
-            ms = statistics.median(cuda_ms(fn, 15))
+            x = x.detach().contiguous()
+            # the plain version on whole chunks: a chunk of a few rows
+            # rounds x.v otherwise (ops/knn.py)
+            padded = torch.cat([x, x.new_zeros(((-M) % 8192, 3))])
+            want = [t[:M] for t in nearest_vertex_ref(padded, verts)]
+            got = nearest_vertex(x, verts)
+            check(torch.equal(got[0].view(torch.int32),
+                              want[0].view(torch.int32))
+                  and torch.equal(got[1], want[1]),
+                  f"nearest_vertex {body_name} {call}: the kernel is not "
+                  f"bit-equal to the plain version")
             bound, by = knn_bound(M, V)
             key = f"{body_name}_{call}"
-            out[key] = {"points": M, "verts": V, "ms": ms,
-                        "launches": device_launches(fn), "bound_ms": bound,
+            out[key] = {"points": M, "verts": V, "bound_ms": bound,
                         "bound_by": by}
-            print(f"[knn] nearest_vertex {key}: {M} points x {V} vertices: "
-                  f"{ms:.4f} ms (median of 15, CUDA events), "
-                  f"{out[key]['launches']} device launches per call "
-                  f"(torch.profiler), bound {bound:.4f} ms set by {by}, "
-                  f"{100 * bound / ms:.1f}% of it")
+            for path, fn in (("kernel", lambda: nearest_vertex(x, verts)),
+                             ("plain", lambda: nearest_vertex_ref(x, verts))):
+                for _ in range(3):
+                    fn()
+                ms = statistics.median(cuda_ms(fn, 15))
+                launches = device_launches(fn)
+                before = nearest_vertex_cuda.launches
+                fn()
+                own = nearest_vertex_cuda.launches - before
+                out[key][path] = {"ms": ms, "launches": launches,
+                                  "kernel_launches": own}
+                print(f"[knn] nearest_vertex {key} ({path}): {M} points x "
+                      f"{V} vertices: {ms:.4f} ms (median of 15, CUDA "
+                      f"events), {launches} device launches per call "
+                      f"(torch.profiler), {own} of the kernel (its counter), "
+                      f"bound {bound:.4f} ms set by {by}, "
+                      f"{100 * bound / ms:.1f}% of it")
+            check(out[key]["kernel"]["kernel_launches"] == 1,
+                  f"nearest_vertex {key} did not launch the kernel once")
     mod = load_lpips("vgg", allow_random=True, device=dev)
     a = torch.rand(lpips_shape, device=dev,
                    generator=torch.Generator(device=dev).manual_seed(1))
@@ -2065,10 +2116,11 @@ def demo_phase(dev, work: Path) -> dict:
         steps_only=True)
     t0 = time.perf_counter()
     enc_paths = {}   # the encode kernel's (launches, rows) per path
-    ftr, fstate, poses = _encode_counted(lambda: fit.main(
-        ["--config-name", "SNARF_NGP_fitting", *data, "deformer=smpl",
-         f"train.max_epochs={FIT_EPOCHS}",
-         *cli_overrides(seq, work / "demo_fit")]), enc_paths, "demo_fit")
+    with knn_path("demo_fit"):
+        ftr, fstate, poses = _encode_counted(lambda: fit.main(
+            ["--config-name", "SNARF_NGP_fitting", *data, "deformer=smpl",
+             f"train.max_epochs={FIT_EPOCHS}",
+             *cli_overrides(seq, work / "demo_fit")]), enc_paths, "demo_fit")
     torch.cuda.synchronize()
     stop()
     res["fit_cli_s"] = time.perf_counter() - t0
@@ -2110,11 +2162,12 @@ def demo_phase(dev, work: Path) -> dict:
     over = [*data, *cli_overrides(seq, run)]
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    trainer, state = _encode_counted(lambda: train.main(
-        ["--config-name", "demo", "sampler.dilate=8",
-         f"train.max_epochs={CLI_EPOCHS}",
-         f"train.check_val_every_n_epoch={CLI_EPOCHS}", *over]),
-        enc_paths, "demo_train")
+    with knn_path("demo_train"):
+        trainer, state = _encode_counted(lambda: train.main(
+            ["--config-name", "demo", "sampler.dilate=8",
+             f"train.max_epochs={CLI_EPOCHS}",
+             f"train.check_val_every_n_epoch={CLI_EPOCHS}", *over]),
+            enc_paths, "demo_train")
     torch.cuda.synchronize()
     res["train_cli_s"] = time.perf_counter() - t0
     steps = CLI_EPOCHS * CLI_TRAIN
@@ -2156,8 +2209,9 @@ def demo_phase(dev, work: Path) -> dict:
              [f"+n_frames={CLI_TURNTABLE}"]),
             ("animation", animate, CLI_POSES, 2, [pose_file]),
             ("animation", animate, CLI_POSES, 16, [pose_file])):
-        out = cli.main([*demo, f"+render_downscale={ds}", *extra, *over])
         side = animate.make_camera(ds)[0]
+        with knn_path(f"demo_{tag}_{side}px"):
+            out = cli.main([*demo, f"+render_downscale={ds}", *extra, *over])
         key = f"{tag}_{side}px_ms_per_frame"
         res[key] = 1e3 * out["render_s"] / out["frames"]
         check(out["frames"] == frames and out["nonfinite_frames"] == 0,
@@ -2208,8 +2262,9 @@ def demo_phase(dev, work: Path) -> dict:
              "transl": np.array([0.0, 0.15, 5.0], np.float32)}
     av.render_frame(st, batch, image_shape=(H, W))    # warm
     t0 = time.perf_counter()
-    out, launches, rows = _counted(
-        lambda: av.render_frame(st, batch, image_shape=(H, W)))
+    with knn_path("smpl_voxel_frame"):
+        out, launches, rows = _counted(
+            lambda: av.render_frame(st, batch, image_shape=(H, W)))
     res["smpl_voxel_frame_ms"] = (time.perf_counter() - t0) * 1e3
     cover = float(out["alpha"].mean())
     print(f"[demo] SMPL-deformer frame, network=voxel_triplane, {H}px: "
@@ -3044,27 +3099,35 @@ def _exact_frame(avatar, state, frame, grid, session) -> dict:
         avatar.render_stream(state, frame, g, (H, W), session))
 
 
-def _timed_frames(run, avatar) -> tuple[list, float, float, tuple]:
+def _timed_frames(run, avatar, knn_as: str | None = None
+                  ) -> tuple[list, float, float, tuple]:
     """FRAME_WARM untimed passes of ``run()`` (a list of frames), then one
     timed: (its frames, ms per frame, peak MiB, and in it the head's
-    launches and rows and the frame graphs captured)."""
+    launches and rows, the frame graphs captured and the grid graphs
+    replayed). With ``knn_as`` the timed pass's nearest-vertex launches
+    go to ``KNN_PATHS[knn_as]``."""
     from instantavatar_torch.kernels import fused_field_head
 
     def captures():
         return avatar.frame_graphs.captures if avatar.frame_graphs else 0
+
+    def grid_replays():
+        return avatar.grid_graphs.replays if avatar.grid_graphs else 0
     for _ in range(FRAME_WARM):
         run()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     launches, rows = fused_field_head.launches, fused_field_head.rows
-    c0 = captures()
-    t0 = time.perf_counter()
-    outs = run()
-    torch.cuda.synchronize()
-    ms = 1e3 * (time.perf_counter() - t0) / len(outs)
+    c0, r0 = captures(), grid_replays()
+    with knn_path(knn_as) if knn_as else contextlib.nullcontext():
+        t0 = time.perf_counter()
+        outs = run()
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / len(outs)
     return (outs, ms, torch.cuda.max_memory_allocated() / 2 ** 20,
             (fused_field_head.launches - launches,
-             fused_field_head.rows - rows, captures() - c0))
+             fused_field_head.rows - rows, captures() - c0,
+             grid_replays() - r0))
 
 
 def frame_phase(dev, avatar, state, grid, turntable: list) -> dict:
@@ -3100,10 +3163,11 @@ def frame_phase(dev, avatar, state, grid, turntable: list) -> dict:
             for f in frames], avatar)
         fg = avatar.frame_graphs
         c0 = (fg.captures, fg.capture_seconds) if fg else (0, 0.0)
-        graphed, g_ms, g_peak, (launches, rows, timed_captures) = \
+        graphed, g_ms, g_peak, (launches, rows, timed_captures,
+                                grid_replays) = \
             _timed_frames(lambda: list(avatar.render_frames(
                 state, frames, grid=fgrid, image_shape=(H, W),
-                session=graph_sess)), avatar)
+                session=graph_sess)), avatar, f"frame_graph_{name}")
         fg = avatar.frame_graphs
         check(fg is not None and fg.replays > 0,
               f"{name}: the frames replayed no graph")
@@ -3117,6 +3181,19 @@ def frame_phase(dev, avatar, state, grid, turntable: list) -> dict:
               f"{name}: the head's launches did not rise on replays "
               f"({launches}), or the timed pass captured "
               f"{timed_captures} graphs")
+        # each frame's grid is one replay of a grid graph (the animate
+        # poses) or the given grid (the turntable); a replay is one
+        # nearest-vertex launch over the grid's cells
+        knn = KNN_PATHS[f"frame_graph_{name}"]
+        want = (len(frames), len(frames) * avatar.grid_size ** 3) \
+            if fgrid is None else (0, 0)
+        print(f"[frame] {name}: timed graph pass, {len(frames)} frames: "
+              f"{grid_replays} grid-graph replays, nearest-vertex kernel "
+              f"launches {knn[0]}, rows {knn[1]}")
+        check(knn == want and grid_replays == want[0],
+              f"{name}: the timed graph pass made {knn} nearest-vertex "
+              f"(launches, rows) and {grid_replays} grid replays, not {want}: "
+              f"one launch per frame's grid replay")
         f0, f1 = frames[0], frames[-1]
         prof_e = _profile_step(lambda: _exact_frame(avatar, state, f1,
                                                     fgrid, eager_sess))
@@ -3728,6 +3805,7 @@ def main(profile_dir: Path | None) -> int:
     sys.path.insert(0, str(ROOT))
     from instantavatar_torch.data.rays import make_ray_basis
     from instantavatar_torch.kernels import (build_hash_library,
+                                             build_knn_library,
                                              build_library, fused_field_head,
                                              fused_field_head_ref)
     from instantavatar_torch.train import RenderSession
@@ -3745,10 +3823,11 @@ def main(profile_dir: Path | None) -> int:
     # -- 2. build: one nvcc per kernel source, all started together ---------
     from concurrent.futures import ThreadPoolExecutor
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
+    with ThreadPoolExecutor(3) as pool:
         builds = [f.result() for f in [pool.submit(build_library),
-                                       pool.submit(build_hash_library)]]
-    print(f"[build] both kernel libraries in "
+                                       pool.submit(build_hash_library),
+                                       pool.submit(build_knn_library)]]
+    print(f"[build] the three kernel libraries in "
           f"{time.perf_counter() - t0:.1f} s (in parallel)")
     for info in builds:
         print(f"[build] {info.path.name}: {info.seconds:.1f} s "
@@ -3939,6 +4018,13 @@ def main(profile_dir: Path | None) -> int:
     a = ngp["encode"]["animate_frame_call"]
     print(f"[smoke] hash-encode kernel launches by path "
           f"{ {k: v[0] for k, v in enc_by_path.items()} }")
+    nv = demo["ops"]["toy7008_grid_cells"]
+    print(f"[smoke] nearest-vertex kernel launches by path "
+          f"{ {k: v[0] for k, v in KNN_PATHS.items()} }")
+    check(all(KNN_PATHS[k][0] > 0 for k in (
+        "cli_animate", "demo_fit", "demo_train", "smpl_voxel_frame",
+        "frame_graph_animate")), "a path that searches the nearest vertex "
+          "on the card never launched the kernel")
     print(json.dumps({"kernels": [{
         "name": "fused_field_head", "route": "cuda",
         "source": "instantavatar_torch/csrc/fused_head.cu",
@@ -3971,7 +4057,19 @@ def main(profile_dir: Path | None) -> int:
         "animate_points": a["rows"], "animate_fwd_ms": a["fwd_kernel_ms"],
         "animate_fwd_bound_ms": a["fwd_bound_ms"],
         "features_checked": sorted({2, *(c.n_features
-                                         for c in encode_grids())})}]}))
+                                         for c in encode_grids())})}, {
+        "name": "nearest_vertex", "route": "cuda",
+        "source": "instantavatar_torch/csrc/nearest_vertex.cu",
+        "replaces": "instantavatar_tpu/deformers/smpl_deformer.py:67",
+        "launches": sum(v[0] for v in KNN_PATHS.values()),
+        "launches_by_path": {k: v[0] for k, v in KNN_PATHS.items()},
+        "rows_per_launch_by_path": {k: v[1] / v[0]
+                                    for k, v in KNN_PATHS.items() if v[0]},
+        "max_abs_err": 0.0,     # bit-equal to the plain version (op_timings)
+        "points": nv["points"], "verts": nv["verts"],
+        "ms": nv["kernel"]["ms"], "plain_ms": nv["plain"]["ms"],
+        "bound_ms": nv["bound_ms"], "bound_by": nv["bound_by"],
+        "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

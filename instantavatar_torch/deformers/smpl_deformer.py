@@ -102,11 +102,9 @@ class SMPLDeformer:
     ROW_FLOATS = ROW_FLOATS
     cache_K = 1
 
-    def __init__(self, body_model: SMPLModel, threshold: float = 0.05,
-                 knn_chunk: int = 8192):
+    def __init__(self, body_model: SMPLModel, threshold: float = 0.05):
         self.body = body_model
         self.threshold = threshold
-        self.knn_chunk = knn_chunk
 
     @property
     def device(self) -> torch.device:
@@ -165,8 +163,7 @@ class SMPLDeformer:
     def _nearest(self, frame: SMPLFrame, pts: torch.Tensor):
         """(T_inv of each point's nearest vertex (M, 4, 4), valid (M,))."""
         dist_sq, idx = nearest_vertex(pts.detach(),
-                                      frame.verts_smpl.detach(),
-                                      self.knn_chunk)
+                                      frame.verts_smpl.detach())
         return frame.T_inv[idx], dist_sq < self.threshold ** 2
 
     def deform(self, frame: SMPLFrame, pts: torch.Tensor

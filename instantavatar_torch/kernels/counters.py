@@ -13,11 +13,12 @@ from typing import Iterator, Sequence
 
 from .fused_head import fused_field_head
 from .hash_encode import hash_encode_cuda
+from .nearest_vertex import nearest_vertex_cuda
 
 __all__ = ["COUNTED", "captured_counts", "add_replay"]
 
 # every wrapper with launch counters
-COUNTED = (fused_field_head, hash_encode_cuda)
+COUNTED = (fused_field_head, hash_encode_cuda, nearest_vertex_cuda)
 
 
 @contextmanager

@@ -7,12 +7,27 @@ package's order (near a vertex the expansion cancels, and a threshold on
 the distance must see the same rounding), then ``torch.topk`` for K
 neighbours (the canonical LBS-voxel bake's K=30, the body-shell grid's
 K=1) or min/argmin for one (``nearest_vertex``, the SMPL deformer).
+
+``nearest_vertex`` on CPU tensors runs that plain version
+(``nearest_vertex_ref``, which the CPU tests hold against JAX); on CUDA
+tensors it runs the hand-written kernel ``kernels/nearest_vertex.py``
+(``csrc/nearest_vertex.cu``), which keeps no distance matrix and holds
+to the plain version's rounding on the card bit for bit: |x|^2 and |v|^2
+as PyTorch's three-wide row sum adds the squares, x.v as cuBLAS's fp32
+K = 3 product accumulates it, the expansion in the order written below,
+the first index on an exact tie. The plain version's own rounding of x.v
+follows its chunk's rows: for a chunk of a few rows (one; at 192
+vertices up to 7) cuBLAS takes kernels that round some dots otherwise in
+the last bit; the kernel holds the order of a whole chunk at every M.
+``knn_points`` stays plain.
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["knn_points", "nearest_vertex"]
+from ..kernels.nearest_vertex import nearest_vertex_cuda
+
+__all__ = ["knn_points", "nearest_vertex", "nearest_vertex_ref"]
 
 
 def _sq_dist(c: torch.Tensor, verts: torch.Tensor, v_sq: torch.Tensor
@@ -36,12 +51,24 @@ def knn_points(pts: torch.Tensor, verts: torch.Tensor, k: int,
             torch.cat(idxs).to(torch.int32))
 
 
-@torch.no_grad()
-def nearest_vertex(pts: torch.Tensor, verts: torch.Tensor,
-                   chunk: int = 8192) -> tuple[torch.Tensor, torch.Tensor]:
+def nearest_vertex(pts: torch.Tensor, verts: torch.Tensor
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """Exact 1-NN: (M, 3) pts vs (V, 3) verts -> (dist_sq (M,) clamped at
     0, idx (M,) int64). No gradient flows through either output. On exact
-    distance ties the first index wins, as in XLA's argmin."""
+    distance ties the first index wins, as in XLA's argmin. CPU tensors
+    run ``nearest_vertex_ref``; anything else runs the CUDA kernel (fp32,
+    no chunks) or raises."""
+    if pts.device.type == "cpu" and verts.device.type == "cpu":
+        return nearest_vertex_ref(pts, verts)
+    return nearest_vertex_cuda(pts.contiguous(), verts.contiguous())
+
+
+@torch.no_grad()
+def nearest_vertex_ref(pts: torch.Tensor, verts: torch.Tensor,
+                       chunk: int = 8192) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain PyTorch version of ``nearest_vertex``, on any device: a
+    (chunk, V) squared-distance matrix per ``chunk`` points, then its
+    min."""
     v_sq = (verts * verts).sum(-1)
     dists, idxs = [], []
     for s in range(0, pts.shape[0], chunk):

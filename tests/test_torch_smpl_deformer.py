@@ -106,7 +106,7 @@ def test_nearest_vertex_matches_jax(pair):
     pts = _query_pts(verts, 1)
     jd2, ji = (np.asarray(x) for x in jax_sd.nearest_vertex(
         jnp.asarray(pts), jnp.asarray(verts), chunk=2048))
-    td2, ti = nearest_vertex(_t(pts), _t(verts), chunk=2048)
+    td2, ti = nearest_vertex(_t(pts), _t(verts))
     np.testing.assert_allclose(td2.numpy(), jd2, atol=1e-5)
     diff = ti.numpy() != ji
     full = ((pts[:, None] - verts[None]) ** 2).sum(-1)
