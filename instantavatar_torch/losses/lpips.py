@@ -59,7 +59,16 @@ class LPIPS(torch.nn.Module):
       convs: the trunk's (weight (O, I, kh, kw), bias (O,)) in order.
       heads: five (C,) 1x1 head weights.
       numerically_matched: the weights are the published ones.
+
+    ``LPIPS.launches`` and ``LPIPS.rows`` count the distance calls of
+    every instance and the pixels of the images they put through the
+    trunk (both sides). A call made while a training step is captured
+    runs at each replay instead; the step graph counts it there, as it
+    counts the kernels (``train/step_graph.py``'s ``STEP_COUNTED``).
     """
+
+    launches = 0
+    rows = 0
 
     def __init__(self, net: str, convs, heads, *,
                  numerically_matched: bool = False):
@@ -112,6 +121,9 @@ class LPIPS(torch.nn.Module):
     def forward(self, pred: torch.Tensor, target: torch.Tensor
                 ) -> torch.Tensor:
         """(N, H, W, 3) images in [0, 1] -> (N,) LPIPS distances."""
+        LPIPS.launches += 1
+        LPIPS.rows += ((pred.shape[0] + target.shape[0]) * pred.shape[1]
+                       * pred.shape[2])
         total = 0.0
         for i, (tp, tt) in enumerate(zip(self.taps(pred), self.taps(target))):
             n_p = tp / torch.linalg.vector_norm(

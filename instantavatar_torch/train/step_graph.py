@@ -32,7 +32,8 @@ the optimizer and without writing the grid, so the state does not
 advance.
 The kernels' counters count at capture, when nothing runs: the
 launches and rows captured into each graph are added on each replay
-(``kernels/counters.py``).
+(``kernels/counters.py``). A step also counts the LPIPS trunk's calls
+(``losses/lpips.py``), which the fit's loss makes inside the graph.
 """
 from __future__ import annotations
 
@@ -42,11 +43,15 @@ from dataclasses import dataclass
 
 import torch
 
-from ..kernels.counters import add_replay, captured_counts
+from ..kernels.counters import COUNTED, add_replay, captured_counts
+from ..losses.lpips import LPIPS
 from ..utils.profiling import span
 from .model import StepDraws, TrainState
 
-__all__ = ["StepGraphs", "step_body"]
+__all__ = ["StepGraphs", "step_body", "STEP_COUNTED"]
+
+# what a step's capture counts: the kernels and the LPIPS trunk
+STEP_COUNTED = (*COUNTED, LPIPS)
 
 
 @dataclass
@@ -54,7 +59,7 @@ class _Graph:
     graph: torch.cuda.CUDAGraph
     losses: torch.Tensor       # (n,) in the pool: the step's loss values
     names: tuple[str, ...]
-    launched: list             # each counted kernel's (launches, rows)
+    launched: list             # (launches, rows) of each STEP_COUNTED
                                # per replay (kernels/counters.py)
 
 
@@ -179,7 +184,7 @@ class StepGraphs:
                 reduce[1](state.opt_state.params, losses, grid, False)
         torch.cuda.current_stream(self.device).wait_stream(self.stream)
         graph = torch.cuda.CUDAGraph()
-        with captured_counts() as launched, torch.cuda.graph(
+        with captured_counts(STEP_COUNTED) as launched, torch.cuda.graph(
                 graph, pool=self.pool, stream=self.stream):
             losses = step_body(model, state, self.batch, draws, update,
                                reduce)
@@ -207,7 +212,7 @@ class StepGraphs:
         with span("step.replay", tag="update" if key[0][0] else "plain",
                   device=True):
             g.graph.replay()
-        add_replay(g.launched)
+        add_replay(g.launched, STEP_COUNTED)
         with span("step.losses"):
             losses = dict(zip(g.names, g.losses.clone().unbind(0)))
         return state._replace(step=state.step + 1), losses
