@@ -102,9 +102,14 @@ points a user calls, and checks it in phases:
      ``animate`` at 540 px and ``animate`` at 67 px (the 1-pixel-block
      render); ``nearest_vertex`` (against the 192-vertex toy body and a
      7,008-vertex one; the kernel, held bit-equal to the plain version,
-     and the plain version) and the LPIPS VGG trunk (plain PyTorch) timed
-     beside their bounds with their device launches per call (XLA in the
-     JAX package: not TPU kernels); the committed JAX SMPL-deformer golden
+     and the plain version), ``nearest_warp`` at a fit step's own warp
+     call (``fit_step_model``: the demo fit's conf on the 7,008-vertex
+     body at 540 px; the kernels in turns with the plain version and
+     with ``index_select``, forward and with the backward, the share of
+     runs merged in a warp) and the LPIPS VGG
+     trunk (plain PyTorch) timed beside their bounds with their device
+     launches per call (XLA in the JAX package: not TPU kernels); the
+     committed JAX SMPL-deformer golden
      frame (48 px), PSNR-bounded; one 540 px SMPL-deformer frame with the
      voxel-triplane field, which must launch the fused head; then the
      full-width refine: ``refine`` at the script's defaults (200 + 100
@@ -898,18 +903,38 @@ def _encode_counted(fn, paths: dict, path: str):
 
 # the nearest-vertex kernel's (launches, rows) per path (``knn_path``)
 KNN_PATHS: dict[str, tuple[int, int]] = {}
+# the warp kernels' (launches, rows, calls of ``SMPLDeformer.deform`` on
+# CUDA tensors) per path (``knn_path``)
+WARP_PATHS: dict[str, tuple[int, int, int]] = {}
 
 
 @contextlib.contextmanager
 def knn_path(path: str):
-    """Count the nearest-vertex kernel's launches and rows in the block
-    from 0 (each replay of a graph that captured it included) into
-    ``KNN_PATHS[path]``."""
-    from instantavatar_torch.kernels import nearest_vertex_cuda
+    """Count the nearest-vertex kernel's and the warp kernels' launches
+    and rows in the block from 0 (each replay of a graph that captured
+    them included) into ``KNN_PATHS[path]`` and ``WARP_PATHS[path]``; the
+    latter also counts the block's calls of ``SMPLDeformer.deform`` on
+    CUDA tensors (a captured graph's replays make no call)."""
+    from instantavatar_torch.deformers import SMPLDeformer
+    from instantavatar_torch.kernels import (nearest_vertex_cuda,
+                                             nearest_warp_cuda)
     nearest_vertex_cuda.launches = nearest_vertex_cuda.rows = 0
-    yield
+    nearest_warp_cuda.launches = nearest_warp_cuda.rows = 0
+    calls = [0]
+    real = SMPLDeformer.deform
+
+    def deform(self, frame, pts):
+        calls[0] += int(pts.is_cuda)
+        return real(self, frame, pts)
+    SMPLDeformer.deform = deform
+    try:
+        yield
+    finally:
+        SMPLDeformer.deform = real
     torch.cuda.synchronize()
     KNN_PATHS[path] = (nearest_vertex_cuda.launches, nearest_vertex_cuda.rows)
+    WARP_PATHS[path] = (nearest_warp_cuda.launches, nearest_warp_cuda.rows,
+                        calls[0])
 
 
 def cli_overrides(seq: Path, run: Path) -> list[str]:
@@ -1768,6 +1793,182 @@ def knn_bound(M: int, V: int) -> tuple[float, str]:
                                        else "bytes")
 
 
+def warp_bound(M: int, V: int, backward: bool) -> float:
+    """Least time (ms) of ``nearest_warp`` on M samples against V
+    vertices, by bytes at the HBM rate: per sample the index (8 B) and
+    the point (12 B) read and xc (12 B) written; with the backward also
+    the gradient on xc read and the points' gradient written (12 B each)
+    and per vertex its 48 B of rows read twice and its 64 B of gradient
+    written. Its operations (~30 fp32 a sample) take ~100 times less."""
+    nbytes = (32.0 + (44.0 if backward else 0.0)) * M \
+        + (48.0 + (112.0 if backward else 0.0)) * V
+    return 1e3 * nbytes / HBM_BYTES_PER_S
+
+
+# the 7,008-vertex toy body (SMPL's 6,890 are license-gated)
+FIT_BODY = {"ring_size": 16, "bone_rings": 18}
+
+
+def fit_step_model(dev, frames: int = 4, size: int = 540):
+    """The demo's first command (``SNARF_NGP_fitting`` with
+    ``deformer=smpl``, as ``config/build.py`` builds it) at the size a
+    user runs it, from the port alone: the 7,008-vertex toy body, trained
+    on ``frames`` capsule frames of that body at ``size`` px (focal
+    ``size``, 3 m away, in the true poses), a fresh field. Returns (model, state,
+    steps): ``steps(first, k)`` gives k steps' batches of the conf's 4 x
+    32^2 patch rays, stacked on ``dev``, and their draws."""
+    import warnings
+    from unittest import mock
+    from instantavatar_torch.body import toy_smpl_model
+    from instantavatar_torch.config import build as build_mod
+    from instantavatar_torch.config import load_config
+    from instantavatar_torch.data import (FrameDataset, PatchSampler,
+                                          make_capsule_sequence)
+    body = toy_smpl_model(**FIT_BODY, device=dev)
+    conf = load_config(ROOT / "confs", "SNARF_NGP_fitting",
+                       ["dataset=custom/video", "deformer=smpl"])
+    with mock.patch.object(build_mod, "build_body_model",
+                           lambda *_: body), warnings.catch_warnings():
+        warnings.simplefilter("ignore")   # the random LPIPS trunk's notice
+        model = build_mod.build_avatar(conf, steps_per_epoch=frames,
+                                       device=dev)
+    seq = make_capsule_sequence(frames, size, size, distance=3.0,
+                                **FIT_BODY, device=dev)
+    smp = conf.sampler
+    ds = FrameDataset(
+        seq["images"], seq["masks"], seq["K"], seq["c2w"],
+        seq["smpl_params"], "train", sampler=PatchSampler(
+            int(smp.num_patch), int(smp.patch_size), float(smp.ratio_mask),
+            rng=np.random.default_rng(0)), bg_rng=np.random.default_rng(1))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    state = model.init(seq["smpl_params"]["betas"], gen,
+                       smpl_params=seq["smpl_params"])
+    n_rays = int(smp.num_patch) * int(smp.patch_size) ** 2
+
+    def steps(first: int, k: int):
+        items = [ds[i % frames] for i in range(first, first + k)]
+        batches = {key: torch.as_tensor(np.stack([np.asarray(b[key])
+                                                  for b in items]),
+                                        device=dev) for key in items[0]}
+        return batches, model.draw_steps(gen, n_rays, first, k)
+    return model, state, steps
+
+
+def fit_warp_call(model, state, batches, draws):
+    """One eager step of ``model``; returns (state, (T_inv, idx, pts,
+    grad)): the step's warp of its rays' samples (the call whose points
+    carry a gradient; an update step's grid sweep warps cells too) and
+    the gradient that reaches its xc."""
+    import instantavatar_torch.deformers.smpl_deformer as sd_mod
+    M = batches["rays_o"][0].numel() // 3 * model.k_cap
+    rec = {}
+    real = sd_mod.nearest_warp
+
+    def spy(T_inv, idx, pts):
+        xc = real(T_inv, idx, pts)
+        if not rec and pts.shape[0] == M and pts.requires_grad:
+            rec.update(T=T_inv.detach().clone(), idx=idx.clone(),
+                       pts=pts.detach().clone())
+            xc.register_hook(lambda g: rec.setdefault("grad", g.clone()))
+        return xc
+    sd_mod.nearest_warp = spy
+    try:
+        state, _ = model.train_multi_step(state, batches, draws, graph=False)
+    finally:
+        sd_mod.nearest_warp = real
+    return state, (rec["T"], rec["idx"], rec["pts"], rec["grad"])
+
+
+def warp_index_select(T_inv: torch.Tensor, idx: torch.Tensor,
+                      pts: torch.Tensor) -> torch.Tensor:
+    """The warp with PyTorch's ``index_select`` for the gather (its
+    backward is ``index_add_``'s atomics, not the sorted index backward of
+    ``T_inv[idx]``): the library alternative to the kernels."""
+    T = T_inv.index_select(0, idx)
+    return (T[:, :3, :3] @ pts[..., None])[..., 0] + T[:, :3, 3]
+
+
+def warp_timings(dev, T_inv: torch.Tensor, idx: torch.Tensor,
+                 pts: torch.Tensor, g: torch.Tensor) -> dict:
+    """Phase 13's nearest-warp timings at a fit step's own warp call
+    (``fit_warp_call``: its table, indices and points, and the gradient
+    that reached xc): ``nearest_warp`` (on the card the kernels of
+    ``csrc/nearest_vertex.cu``) beside its plain version
+    ``nearest_warp_ref`` (the gather ``T_inv[idx]``, a batched matmul and
+    PyTorch's sorted index backward) and ``warp_index_select`` (the same
+    with ``index_select``). The forward, and the forward with both
+    gradients, in turns (kernel, plain, index_select, index_select,
+    plain, kernel), median of 30 (CUDA events); the kernels' own launches
+    per call (their counter: torch.profiler may miss a ctypes launch);
+    the bound by bytes; the largest difference from the plain version;
+    and, reckoned from the indices outside the timed calls, the share of
+    the lanes with a gradient whose sum a run of their warp merges into
+    another lane's atomics."""
+    from instantavatar_torch.kernels import nearest_warp_cuda
+    from instantavatar_torch.ops import nearest_warp_ref
+    T_inv, pts, g = (t.detach().contiguous() for t in (T_inv, pts, g))
+    M, V = pts.shape[0], T_inv.shape[0]
+    adds = g.ne(0).any(-1)
+    warp = torch.arange(M, device=dev) // 32
+    runs = torch.unique((warp * V + idx)[adds]).numel()
+    merged = 1.0 - runs / max(int(adds.sum()), 1)
+    T_leaf = T_inv.clone().requires_grad_()
+    x_leaf = pts.clone().requires_grad_()
+    paths = {"kernel": nearest_warp_cuda, "plain": nearest_warp_ref,
+             "index_select": warp_index_select}
+
+    def fwd(fn):
+        with torch.no_grad():
+            return fn(T_inv, idx, pts)
+
+    def fwd_bwd(fn):
+        xc = fn(T_leaf, idx, x_leaf)
+        return (xc, *torch.autograd.grad(xc, (T_leaf, x_leaf), g))
+    got, want = fwd_bwd(nearest_warp_cuda), fwd_bwd(nearest_warp_ref)
+    fwd_err = float((got[0] - want[0]).abs().max())
+    fwd_bits = int((got[0].view(torch.int32)
+                    != want[0].view(torch.int32)).sum())
+    rel = [float((a - b).double().norm() / b.double().norm())
+           for a, b in zip(got[1:], want[1:])]
+    check(fwd_err <= 1e-6 and max(rel) <= 1e-5,
+          f"nearest_warp at the fit's call: xc {fwd_err:.3e} from the plain "
+          f"version, gradients {rel}")
+    out = {"points": M, "verts": V, "adds": int(adds.sum()),
+           "merged_share": merged, "fwd_max_abs_err": fwd_err,
+           "fwd_bits_differ": fwd_bits, "grad_T_rel": rel[0],
+           "grad_pts_rel": rel[1]}
+    for call, run in (("fwd", fwd), ("fwd_bwd", fwd_bwd)):
+        bound = warp_bound(M, V, call == "fwd_bwd")
+        ms = {path: [] for path in paths}
+        for path in (*paths, *reversed(paths)):
+            fn = paths[path]
+            for _ in range(3):
+                run(fn)
+            ms[path] += cuda_ms(lambda: run(fn), 15)
+        for path, fn in paths.items():
+            before = nearest_warp_cuda.launches
+            run(fn)
+            own = nearest_warp_cuda.launches - before
+            med = statistics.median(ms[path])
+            out[f"{call}_{path}"] = {"ms": med, "kernel_launches": own}
+            print(f"[warp] nearest_warp {call} ({path}): {M} samples x {V} "
+                  f"vertices: {med:.4f} ms (median of 30 in turns, CUDA "
+                  f"events), {own} launches of the kernels (their "
+                  f"counter), bound {bound:.4f} ms by bytes, "
+                  f"{100 * bound / med:.1f}% of it")
+        out[f"{call}_bound_ms"] = bound
+    check((out["fwd_kernel"]["kernel_launches"],
+           out["fwd_bwd_kernel"]["kernel_launches"]) == (1, 2),
+          "nearest_warp did not launch its forward and backward kernels")
+    print(f"[warp] nearest_warp at the fit's call: {int(adds.sum())} of {M} "
+          f"samples with a gradient, {100 * merged:.1f}% of them merged into "
+          f"another lane's atomics by a run of their warp; xc max|diff| "
+          f"{fwd_err:.3e} ({fwd_bits} elements not bit-equal), gradients "
+          f"L2-relative {rel[0]:.3e} (table) / {rel[1]:.3e} (points) from "
+          f"the plain version")
+    return out
+
+
 def count_flops(fn) -> float:
     """FLOPs of one call of ``fn`` (its matmuls and convolutions, forward
     and backward, as torch.utils.flop_counter counts them: 2 per
@@ -2155,6 +2356,11 @@ def demo_phase(dev, work: Path) -> dict:
           and "loss_lpips" in losses and "loss_depth_reg" in losses,
           "demo fit: loss_lpips / loss_depth_reg missing or not finite")
     check(drift > 0, "demo fit did not move the SMPL parameters")
+    warps = WARP_PATHS["demo_fit"]
+    check(warps[2] > 0 and warps[0] >= 2 * fsteps,
+          f"demo fit: {warps[0]} launches of the warp kernels in {fsteps} "
+          f"steps ({warps[2]} deform calls on the card); every step "
+          f"launches a forward and a backward")
 
     # -- train with the demo conf -------------------------------------------
     del ftr, fstate   # the fit's model, and its graphs' memory, go with it
@@ -2229,9 +2435,15 @@ def demo_phase(dev, work: Path) -> dict:
     # -- op timings -------------------------------------------------------------
     res["ops"] = op_timings(dev, fit_x["x"], (4, 32, 32, 3),
                             trainer.avatar.grid_size)
+    del trainer, state
+    model, mstate, steps = fit_step_model(dev)
+    res["ops"]["warp"] = warp_timings(
+        dev, *fit_warp_call(model, mstate, *steps(0, 1))[1])
+    del model, mstate, steps
 
     # -- the SMPL-deformer golden ---------------------------------------------
-    gold = smpl_golden.render_golden(dev)
+    with knn_path("smpl_golden"):
+        gold = smpl_golden.render_golden(dev)
     res["golden_db"] = gold["psnr"]
     print(f"[smpl golden] {gold['image_hw']}px SMPLDeformer + NGPField "
           f"frame, port on {torch.cuda.get_device_name(0)} vs JAX on CPU: "
@@ -4019,12 +4231,19 @@ def main(profile_dir: Path | None) -> int:
     print(f"[smoke] hash-encode kernel launches by path "
           f"{ {k: v[0] for k, v in enc_by_path.items()} }")
     nv = demo["ops"]["toy7008_grid_cells"]
+    nw = demo["ops"]["warp"]
     print(f"[smoke] nearest-vertex kernel launches by path "
           f"{ {k: v[0] for k, v in KNN_PATHS.items()} }")
     check(all(KNN_PATHS[k][0] > 0 for k in (
         "cli_animate", "demo_fit", "demo_train", "smpl_voxel_frame",
         "frame_graph_animate")), "a path that searches the nearest vertex "
           "on the card never launched the kernel")
+    print(f"[smoke] nearest-warp kernel launches (SMPLDeformer.deform calls "
+          f"on the card) by path "
+          f"{ {k: f'{v[0]} ({v[2]})' for k, v in WARP_PATHS.items()} }")
+    check(all(v[0] > 0 for v in WARP_PATHS.values() if v[2]),
+          "a path that calls SMPLDeformer.deform on the card never launched "
+          "the warp kernels")
     print(json.dumps({"kernels": [{
         "name": "fused_field_head", "route": "cuda",
         "source": "instantavatar_torch/csrc/fused_head.cu",
@@ -4069,7 +4288,26 @@ def main(profile_dir: Path | None) -> int:
         "points": nv["points"], "verts": nv["verts"],
         "ms": nv["kernel"]["ms"], "plain_ms": nv["plain"]["ms"],
         "bound_ms": nv["bound_ms"], "bound_by": nv["bound_by"],
-        "library_ms": None}]}))
+        "library_ms": None}, {
+        "name": "nearest_warp", "route": "cuda",
+        "source": "instantavatar_torch/csrc/nearest_vertex.cu",
+        "replaces": "instantavatar_tpu/deformers/smpl_deformer.py (deform)",
+        "launches": sum(v[0] for v in WARP_PATHS.values()),
+        "launches_by_path": {k: v[0] for k, v in WARP_PATHS.items()},
+        "rows_per_launch_by_path": {k: v[1] / v[0]
+                                    for k, v in WARP_PATHS.items() if v[0]},
+        "deform_calls_by_path": {k: v[2] for k, v in WARP_PATHS.items()},
+        "max_abs_err": nw["fwd_max_abs_err"],
+        "grad_rel_err": max(nw["grad_T_rel"], nw["grad_pts_rel"]),
+        "points": nw["points"], "verts": nw["verts"],
+        "merged_share": nw["merged_share"],
+        "ms": nw["fwd_bwd_kernel"]["ms"],
+        "plain_ms": nw["fwd_bwd_plain"]["ms"],
+        "bound_ms": nw["fwd_bwd_bound_ms"], "bound_by": "bytes",
+        "index_select_ms": nw["fwd_bwd_index_select"]["ms"],
+        "fwd_ms": nw["fwd_kernel"]["ms"], "fwd_plain_ms": nw["fwd_plain"]["ms"],
+        "fwd_index_select_ms": nw["fwd_index_select"]["ms"],
+        "fwd_bound_ms": nw["fwd_bound_ms"], "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -57,7 +57,11 @@
 //    (a NaN, an infinity, or a size whose d^2 could overflow); below it
 //    every d^2 is finite and a strict compare is the same rule.
 //
-// Plain C interface, loaded with ctypes: the entry point launches one
+// The nearest-vertex warp (nearest_warp_*, below the search): each
+// sample's canonical point through its nearest vertex's inverse
+// transform, forward and backward, for the SMPL deformer.
+//
+// Plain C interface, loaded with ctypes: each entry point launches one
 // kernel on the caller's stream, allocates nothing and returns
 // cudaGetLastError().
 
@@ -186,6 +190,225 @@ cudaError_t allow_tiles() {
 
 }  // namespace
 
+// ---- the nearest-vertex warp ----------------------------------------------
+//
+// xc = R p + t for each sample p, where [R | t] are rows 0-2 of T_inv[idx]
+// of the (V, 4, 4) per-vertex inverse transforms, and its backward, in
+// place of the SMPL deformer's plain version (ops/knn.py:nearest_warp_ref:
+// the (M, 4, 4) gather T_inv[idx], a batched matmul and an add). The JAX
+// package computes the same in XLA (instantavatar_tpu/deformers/
+// smpl_deformer.py, deform). The plain version's backward goes through
+// PyTorch's index_put_(accumulate=True): it sorts the M indices and walks
+// each run of equal ones serially in one warp, and in a fit step all the
+// samples of a ray, and every sample outside the body, share a few
+// vertices: 5.8 ms of a 16 ms step on an H100 for 262,144 samples, whose
+// bytes take ~3.4 us at the HBM rate.
+//
+// Forward, a thread a sample: rows 0-2 of its vertex (the table, 7,008 x
+// 48 B, stays in L2), xc written; nothing of size (M, 4, 4) is made. Each
+// coordinate rounds as the plain version's batched matmul does on the
+// card, fma(R1, y, R0 * x) + R2 * z, then + t: bit-equal to it. (The fit's
+// pose gradient sees the last bit of xc, through the finest hash levels'
+// weights.)
+//
+// Backward, a thread a sample:
+//  - grad_pts = R^T grad_xc (when asked for), rounded as the plain
+//    version's matmul backward at a fit's batch, fma(R1c, g1, R0c * g0) +
+//    R2c * g2 (below ~100 rows cuBLAS takes another order);
+//  - grad_T[v, r, :] += grad_xc[r] * [p, 1] for r = 0..2 (row 3 stays
+//    zero), into a zeroed (V, 4, 4) table. The lanes of a warp that add
+//    to one vertex (a run: __match_any_sync on the index) are summed in
+//    lane order, that is in sample order, by the run's lowest lane, term
+//    by term as the plain version rounds them (products, then adds; no
+//    FMA), and that lane adds the sums with three float4 atomics. The
+//    samples of a ray are consecutive, so a warp mostly holds a few runs.
+//    A lane whose grad_xc is exactly zero (every sample outside the
+//    threshold) adds nothing: +0.0 changes no sum. Where a vertex's
+//    samples lie in one warp its sum is the plain version's, bit for bit;
+//    across warps the atomics add the warps' sums in an order that varies
+//    from run to run.
+//  - Under deterministic algorithms the wrapper sorts the indices stably
+//    (torch.sort), finds each vertex's run (torch.searchsorted), and
+//    nearest_warp_runs sums each (vertex, row) in sample order, a thread
+//    each, as the plain version's sorted backward does: the same bits
+//    from run to run, and the plain version's bits on the card. That
+//    path is not a speed target (one long run is one thread's).
+// An index outside [0, V) gives a NaN point and no gradient.
+
+namespace {
+
+constexpr int kWarpThreads = 256;   // threads a block of the warp kernels
+constexpr unsigned kFullMask = 0xffffffffu;
+
+// rows 0-2 of vertex v's transform
+__device__ __forceinline__ void load_rows(const float4* __restrict__ T,
+                                          int64_t v, float4 (&row)[3]) {
+#pragma unroll
+  for (int r = 0; r < 3; ++r) row[r] = __ldg(T + 4 * v + r);
+}
+
+// a . (x, y, z) as cuBLAS's batched K = 3 products round it in the plain
+// version (probed on the card, every order of the three terms against
+// its bmm, batches of 100 to 262,144 rows): fma(a1, y, a0 * x) + a2 * z
+__device__ __forceinline__ float dot3(float a0, float a1, float a2, float x,
+                                      float y, float z) {
+  return __fadd_rn(__fmaf_rn(a1, y, __fmul_rn(a0, x)), __fmul_rn(a2, z));
+}
+
+__device__ __forceinline__ bool in_table(int64_t v, int V) {
+  return v >= 0 && v < V;
+}
+
+__device__ __forceinline__ float quiet_nan() {
+  return __int_as_float(0x7fc00000);
+}
+
+__device__ __forceinline__ void add_row(float4* dst, float4 v) {
+#if defined(__CUDA_ARCH__) && __CUDA_ARCH__ >= 900 && CUDART_VERSION >= 12010
+  atomicAdd(dst, v);
+#else
+  float* d = reinterpret_cast<float*>(dst);
+  atomicAdd(d, v.x);
+  atomicAdd(d + 1, v.y);
+  atomicAdd(d + 2, v.z);
+  atomicAdd(d + 3, v.w);
+#endif
+}
+
+__global__ void __launch_bounds__(kWarpThreads)
+    nearest_warp_forward(const float4* __restrict__ T,
+                         const int64_t* __restrict__ idx,
+                         const float* __restrict__ pts,
+                         float* __restrict__ xc, long long M, int V) {
+  const long long i =
+      static_cast<long long>(blockIdx.x) * kWarpThreads + threadIdx.x;
+  if (i >= M) return;
+  const int64_t v = idx[i];
+  const float x = pts[3 * i], y = pts[3 * i + 1], z = pts[3 * i + 2];
+  float out[3] = {quiet_nan(), quiet_nan(), quiet_nan()};
+  if (in_table(v, V)) {
+    float4 row[3];
+    load_rows(T, v, row);
+#pragma unroll
+    for (int r = 0; r < 3; ++r)
+      out[r] = __fadd_rn(dot3(row[r].x, row[r].y, row[r].z, x, y, z),
+                         row[r].w);
+  }
+#pragma unroll
+  for (int r = 0; r < 3; ++r) xc[3 * i + r] = out[r];
+}
+
+// grad_T or grad_pts may be null (not asked for); every lane of the grid
+// reaches the warp's collectives, so no lane returns early
+__global__ void __launch_bounds__(kWarpThreads)
+    nearest_warp_backward(const float4* __restrict__ T,
+                          const int64_t* __restrict__ idx,
+                          const float* __restrict__ pts,
+                          const float* __restrict__ grad_xc,
+                          float4* __restrict__ grad_T,
+                          float* __restrict__ grad_pts, long long M, int V) {
+  const long long i =
+      static_cast<long long>(blockIdx.x) * kWarpThreads + threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  float g[3] = {0.f, 0.f, 0.f}, p[3] = {0.f, 0.f, 0.f};
+  int64_t v = -1;
+  if (i < M) {
+    v = idx[i];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      g[c] = grad_xc[3 * i + c];
+      p[c] = pts[3 * i + c];
+    }
+  }
+  const bool ok = i < M && in_table(v, V);
+  if (grad_pts != nullptr && i < M) {
+    float d[3] = {quiet_nan(), quiet_nan(), quiet_nan()};
+    if (ok) {
+      float4 row[3];
+      load_rows(T, v, row);
+      d[0] = dot3(row[0].x, row[1].x, row[2].x, g[0], g[1], g[2]);
+      d[1] = dot3(row[0].y, row[1].y, row[2].y, g[0], g[1], g[2]);
+      d[2] = dot3(row[0].z, row[1].z, row[2].z, g[0], g[1], g[2]);
+    }
+#pragma unroll
+    for (int c = 0; c < 3; ++c) grad_pts[3 * i + c] = d[c];
+  }
+  if (grad_T == nullptr) return;   // the same for the whole grid
+  const bool adds = ok && (g[0] != 0.f || g[1] != 0.f || g[2] != 0.f);
+  // a lane that adds nothing is a run of its own
+  const unsigned long long key =
+      adds ? static_cast<unsigned long long>(v) : ~0ULL - lane;
+  const unsigned run = __match_any_sync(kFullMask, key);
+  const int leader = __ffs(run) - 1;
+  float acc[3][4];
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) acc[r][c] = __fmul_rn(g[r], p[c]);
+    acc[r][3] = g[r];
+  }
+  // every other lane of a run, in lane order, into the run's lowest lane
+  for (unsigned rest = __ballot_sync(kFullMask, adds && lane != leader);
+       rest; rest &= rest - 1) {
+    const int k = __ffs(rest) - 1;
+    float gk[3], pk[3];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      gk[c] = __shfl_sync(kFullMask, g[c], k);
+      pk[c] = __shfl_sync(kFullMask, p[c], k);
+    }
+    if (adds && lane == leader && (run >> k & 1u)) {
+#pragma unroll
+      for (int r = 0; r < 3; ++r) {
+#pragma unroll
+        for (int c = 0; c < 3; ++c)
+          acc[r][c] = __fadd_rn(acc[r][c], __fmul_rn(gk[r], pk[c]));
+        acc[r][3] = __fadd_rn(acc[r][3], gk[r]);
+      }
+    }
+  }
+  if (adds && lane == leader) {
+#pragma unroll
+    for (int r = 0; r < 3; ++r)
+      add_row(grad_T + 4 * v + r,
+              make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]));
+  }
+}
+
+// a thread per (vertex, row): the vertex's run of the stably sorted
+// samples (perm[offsets[v]:offsets[v + 1]]) summed in sample order
+__global__ void __launch_bounds__(kWarpThreads)
+    nearest_warp_runs(const int64_t* __restrict__ perm,
+                      const int64_t* __restrict__ offsets,
+                      const float* __restrict__ pts,
+                      const float* __restrict__ grad_xc,
+                      float4* __restrict__ grad_T, int V) {
+  const long long t =
+      static_cast<long long>(blockIdx.x) * kWarpThreads + threadIdx.x;
+  if (t >= 3LL * V) return;
+  const int v = static_cast<int>(t / 3), r = static_cast<int>(t % 3);
+  float a[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int64_t k = offsets[v]; k < offsets[v + 1]; ++k) {
+    const int64_t i = perm[k];
+    const float g = grad_xc[3 * i + r];
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+      a[c] = __fadd_rn(a[c], __fmul_rn(g, pts[3 * i + c]));
+    a[3] = __fadd_rn(a[3], g);
+  }
+  grad_T[4 * v + r] = make_float4(a[0], a[1], a[2], a[3]);
+}
+
+int warp_blocks(long long n, unsigned* blocks) {
+  const long long b = (n + kWarpThreads - 1) / kWarpThreads;
+  if (n < 0 || b >= (1LL << 31))
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  *blocks = static_cast<unsigned>(b);
+  return 0;
+}
+
+}  // namespace
+
 extern "C" {
 
 // pts (M, 3) and verts (V, 3) fp32 contiguous -> dist (M,) fp32 and idx
@@ -204,6 +427,51 @@ int nearest_vertex_launch(const float* pts, const float* verts, float* dist,
   nearest_vertex_kernel<<<static_cast<unsigned>(blocks), kThreads,
                           tile * sizeof(float4), stream>>>(
       pts, verts, dist, idx, M, V, tile);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// T_inv (V, 4, 4) fp32 (16-byte aligned), idx (M,) int64 and pts (M, 3)
+// fp32, contiguous -> xc (M, 3). M = 0 launches nothing.
+int nearest_warp_forward_launch(const float* T_inv, const int64_t* idx,
+                                const float* pts, float* xc, long long M,
+                                int V, cudaStream_t stream) {
+  unsigned blocks = 0;
+  if (V < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (const int err = warp_blocks(M, &blocks)) return err;
+  if (M == 0) return 0;
+  nearest_warp_forward<<<blocks, kWarpThreads, 0, stream>>>(
+      reinterpret_cast<const float4*>(T_inv), idx, pts, xc, M, V);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// grad_xc (M, 3) -> grad_T (V, 4, 4), zeroed by the caller, added to by
+// atomics (null: not asked for), and grad_pts (M, 3) (null: not asked
+// for); T_inv is read only for grad_pts.
+int nearest_warp_backward_launch(const float* T_inv, const int64_t* idx,
+                                 const float* pts, const float* grad_xc,
+                                 float* grad_T, float* grad_pts,
+                                 long long M, int V, cudaStream_t stream) {
+  unsigned blocks = 0;
+  if (V < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (const int err = warp_blocks(M, &blocks)) return err;
+  if (M == 0 || (grad_T == nullptr && grad_pts == nullptr)) return 0;
+  nearest_warp_backward<<<blocks, kWarpThreads, 0, stream>>>(
+      reinterpret_cast<const float4*>(T_inv), idx, pts, grad_xc,
+      reinterpret_cast<float4*>(grad_T), grad_pts, M, V);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the deterministic grad_T: perm (M,) the stable sort's order of idx,
+// offsets (V + 1,) where each vertex's run starts in it; rows 0-2 of
+// grad_T written (row 3 is the caller's zeros)
+int nearest_warp_runs_launch(const int64_t* perm, const int64_t* offsets,
+                             const float* pts, const float* grad_xc,
+                             float* grad_T, int V, cudaStream_t stream) {
+  unsigned blocks = 0;
+  if (V < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (const int err = warp_blocks(3LL * V, &blocks)) return err;
+  nearest_warp_runs<<<blocks, kWarpThreads, 0, stream>>>(
+      perm, offsets, pts, grad_xc, reinterpret_cast<float4*>(grad_T), V);
   return static_cast<int>(cudaGetLastError());
 }
 

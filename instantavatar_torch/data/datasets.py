@@ -80,8 +80,9 @@ class _Split:
                 bg = self.bg_rng.random(img.shape, dtype=np.float32)
             else:
                 bg = np.ones_like(img)
-            img = img * msk[..., None] + (1 - msk[..., None]) * bg
 
+            # the blend is per pixel, so it is made on the sampled pixels
+            # only: the same values as blending the whole frame first
             if self.sampler is not None:
                 msk, img, rays_o, rays_d, bg = self.sampler.sample(
                     msk, img, self.rays_o, self.rays_d, bg)
@@ -91,6 +92,7 @@ class _Split:
                 img = img.reshape(-1, 3)
                 msk = msk.reshape(-1)
                 bg = bg.reshape(-1, 3)
+            img = img * msk[..., None] + (1 - msk[..., None]) * bg
             return self._datum(idx, img.astype(np.float32), msk, bg, rays_o,
                                rays_d)
 

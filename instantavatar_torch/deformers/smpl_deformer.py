@@ -29,7 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from ..body import SMPLModel, SMPLOutput, smpl_forward
-from ..ops.knn import nearest_vertex
+from ..ops.knn import nearest_vertex, nearest_warp
 from ..render.raymarcher import Rays
 from ..utils.device_const import device_constant
 from .packed_cache import ROW_FLOATS, make_packed_cache_fns, mask_cells
@@ -161,17 +161,18 @@ class SMPLDeformer:
         return Rays(o=o, d=d, near=dist - 1.0, far=dist + 1.0)
 
     def _nearest(self, frame: SMPLFrame, pts: torch.Tensor):
-        """(T_inv of each point's nearest vertex (M, 4, 4), valid (M,))."""
+        """(each point's nearest vertex (M,) int64, valid (M,))."""
         dist_sq, idx = nearest_vertex(pts.detach(),
                                       frame.verts_smpl.detach())
-        return frame.T_inv[idx], dist_sq < self.threshold ** 2
+        return idx, dist_sq < self.threshold ** 2
 
     def deform(self, frame: SMPLFrame, pts: torch.Tensor
                ) -> tuple[torch.Tensor, torch.Tensor]:
-        """(M, 3) SMPL-space pts -> (canonical pts (M, 3), valid (M,))."""
-        T, valid = self._nearest(frame, pts)
-        xc = (T[:, :3, :3] @ pts[..., None])[..., 0] + T[:, :3, 3]
-        return xc, valid
+        """(M, 3) SMPL-space pts -> (canonical pts (M, 3), valid (M,)):
+        each point through its nearest vertex's T_inv (``nearest_warp``:
+        on the card the warp kernels, forward and backward)."""
+        idx, valid = self._nearest(frame, pts)
+        return nearest_warp(frame.T_inv, idx, pts), valid
 
     @torch.no_grad()
     def bake_packed_cache(self, cano: SMPLCanonical, frame: SMPLFrame,
@@ -182,7 +183,8 @@ class SMPLDeformer:
         (C, 13) [xc, J_inv = T_inv[:3, :3], valid], per-cell sigma (C,):
         relu of ``net_sigma_fn`` at xc, 0 where invalid). ``cell_mask``
         (C,) bool, as in JAX: False rows and their sigma are zero."""
-        T, valid = self._nearest(frame, cells)
+        idx, valid = self._nearest(frame, cells)
+        T = frame.T_inv[idx]
         xc = (T[:, :3, :3] @ cells[..., None])[..., 0] + T[:, :3, 3]
         rows = torch.cat([xc, T[:, :3, :3].reshape(-1, 9),
                           valid.float()[:, None]], dim=-1)

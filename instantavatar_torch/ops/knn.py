@@ -20,14 +20,22 @@ follows its chunk's rows: for a chunk of a few rows (one; at 192
 vertices up to 7) cuBLAS takes kernels that round some dots otherwise in
 the last bit; the kernel holds the order of a whole chunk at every M.
 ``knn_points`` stays plain.
+
+``nearest_warp`` takes each point through its nearest vertex's inverse
+transform (the SMPL deformer's warp): CPU tensors run the plain version
+``nearest_warp_ref`` (the gather ``T_inv[idx]`` and a batched matmul, the
+arithmetic the CPU tests hold against JAX), CUDA tensors the kernels of
+``kernels/nearest_vertex.py``, forward and backward, which make no (M, 4,
+4) gather and send no gradient through PyTorch's sorted index backward.
 """
 from __future__ import annotations
 
 import torch
 
-from ..kernels.nearest_vertex import nearest_vertex_cuda
+from ..kernels.nearest_vertex import nearest_vertex_cuda, nearest_warp_cuda
 
-__all__ = ["knn_points", "nearest_vertex", "nearest_vertex_ref"]
+__all__ = ["knn_points", "nearest_vertex", "nearest_vertex_ref",
+           "nearest_warp", "nearest_warp_ref"]
 
 
 def _sq_dist(c: torch.Tensor, verts: torch.Tensor, v_sq: torch.Tensor
@@ -79,3 +87,23 @@ def nearest_vertex_ref(pts: torch.Tensor, verts: torch.Tensor,
         return (pts.new_zeros((0,)),
                 torch.zeros((0,), dtype=torch.long, device=pts.device))
     return torch.cat(dists).clamp_min(0.0), torch.cat(idxs)
+
+
+def nearest_warp(T_inv: torch.Tensor, idx: torch.Tensor, pts: torch.Tensor
+                 ) -> torch.Tensor:
+    """(V, 4, 4) transforms, (M,) int64 vertex indices and (M, 3) points ->
+    xc (M, 3) = T_inv[idx, :3, :3] @ p + T_inv[idx, :3, 3], differentiable
+    in ``T_inv`` and ``pts``. CPU tensors run ``nearest_warp_ref``;
+    anything else runs the CUDA kernels or raises."""
+    if all(t.device.type == "cpu" for t in (T_inv, idx, pts)):
+        return nearest_warp_ref(T_inv, idx, pts)
+    return nearest_warp_cuda(T_inv.contiguous(), idx.contiguous(),
+                             pts.contiguous())
+
+
+def nearest_warp_ref(T_inv: torch.Tensor, idx: torch.Tensor,
+                     pts: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version of ``nearest_warp``, on any device: the
+    (M, 4, 4) gather, then the affine apply."""
+    T = T_inv[idx]
+    return (T[:, :3, :3] @ pts[..., None])[..., 0] + T[:, :3, 3]

@@ -307,7 +307,8 @@ def test_counter_helper_adds_each_kernels_replays():
     assert (b.launches, b.rows) == (13, 1207)
     assert counters.COUNTED == (counters.fused_field_head,
                                 kernel_mod.hash_encode_cuda,
-                                counters.nearest_vertex_cuda)
+                                counters.nearest_vertex_cuda,
+                                counters.nearest_warp_cuda)
     for mod in (step_graph, frame_graph, grid_graph):
         assert mod.add_replay is counters.add_replay
         assert mod.captured_counts is counters.captured_counts
