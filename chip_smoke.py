@@ -19,7 +19,7 @@ points a user calls, and checks it in phases:
      TFLOP/s);
   4. the 540 px slice: 2 warm frames, then an 8-frame turntable through
      ``render_frames`` (each frame a replay of a captured CUDA graph at
-     the session's learned budgets, ``train/frame_graph.py``); the
+     the session's learned budgets, ``train/graphs.py``); the
      kernel's launch counter must rise;
   5. head swap: one frame again with the plain head, PSNR-bounded;
   6. golden: the committed JAX golden frame (96 px), PSNR-bounded;
@@ -27,7 +27,7 @@ points a user calls, and checks it in phases:
      the card), 150 ``AvatarModel.step`` calls (5 epochs; grid update and
      occupancy regularizer every 20 steps, cached-search steps between,
      Adam with the 20-epoch decay), each one replay of the step's
-     captured CUDA graph (``train/step_graph.py``); step times, peak
+     captured CUDA graph (``train/graphs.py``); step times, peak
      memory, occupied cells, the graphs captured and their capture time,
      the loss fall (bounded);
   8. validation: the 2 val frames rendered with ``eval_grid="density"``
@@ -1086,7 +1086,7 @@ def _record_calls(module, attr: str, describe, steps_only: bool = False):
     calls its capture made, which each replay repeats (the warm-up
     before a capture is not a step)."""
     from instantavatar_torch.train import AvatarModel
-    from instantavatar_torch.train.step_graph import StepGraphs
+    from instantavatar_torch.train.graphs import StepGraphs
     real = getattr(module, attr)
     real_gl = AvatarModel.grads_and_losses
     real_capture, real_run = StepGraphs._capture, StepGraphs.run
@@ -1113,10 +1113,10 @@ def _record_calls(module, attr: str, describe, steps_only: bool = False):
         finally:
             sink[0] = prev
 
-    def capture(self, state, key, *a):
+    def capture(self, key, *a):
         capturing[0] = []
         try:
-            return real_capture(self, state, key, *a)
+            return real_capture(self, key, *a)
         finally:
             captured[(id(self), key)], capturing[0] = capturing[0], None
 

@@ -2,9 +2,9 @@
 
 Each kernel's wrapper counts ``launches`` and ``rows`` where it launches.
 A launch made while a graph is captured does not run then but at each
-replay, so the graph's owner (``train/step_graph.py``,
-``train/frame_graph.py``, ``train/grid_graph.py``) takes the counts of
-its capture off the counters and adds them back at every replay.
+replay, so the graph mechanism (``train/graphs.py``, for the step, frame
+and grid graphs) takes the counts of its capture off the counters and
+adds them back at every replay.
 """
 from __future__ import annotations
 

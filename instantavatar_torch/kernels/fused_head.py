@@ -178,6 +178,6 @@ def fused_field_head(enc: torch.Tensor, sigma_w, sigma_b, color_w, color_b
 
 # launch counters: kernel launches and rows through the kernel. A launch
 # made while a CUDA graph is captured runs at each replay instead; the
-# graph's owner counts it there (train/step_graph.py).
+# graph mechanism counts it there (train/graphs.py).
 fused_field_head.launches = 0
 fused_field_head.rows = 0

@@ -64,7 +64,7 @@ class LPIPS(torch.nn.Module):
     every instance and the pixels of the images they put through the
     trunk (both sides). A call made while a training step is captured
     runs at each replay instead; the step graph counts it there, as it
-    counts the kernels (``train/step_graph.py``'s ``STEP_COUNTED``).
+    counts the kernels (``train/graphs.py``'s ``GRAPH_COUNTED``).
     """
 
     launches = 0

@@ -27,7 +27,7 @@ process with its own device), and the collectives are explicit:
     the image per rank through ``render_stream`` and the fused head), the
     outputs all-gathered in ray order. On a CUDA model each local shard
     or band is one replay of a captured CUDA graph
-    (``train/frame_graph.py``), the gather outside it, so gloo and NCCL
+    (``train/graphs.py``), the gather outside it, so gloo and NCCL
     groups both replay.
 
 A mesh made without an initialized process group is a world of 1: one
@@ -42,7 +42,6 @@ packing have no counterpart.
 from __future__ import annotations
 
 import functools
-import warnings
 from dataclasses import dataclass
 from typing import Any, NamedTuple
 
@@ -50,8 +49,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..train.model import (AvatarModel, RenderSession, StepDraws, TrainState,
-                           _high_water)
+from ..train.graphs import StepGraphs
+from ..train.model import AvatarModel, RenderSession, StepDraws, TrainState
 
 __all__ = ["PER_FRAME", "Mesh", "make_mesh", "shard_batch", "rank_draws",
            "make_dp_train_step", "make_dp_render", "DPFrameRenderer",
@@ -217,7 +216,7 @@ def _graphed(avatar: AvatarModel, mesh: Mesh, graph: bool | None) -> bool:
 
 def _ray_reduce(mesh: Mesh):
     """The DP step's hook between autograd and the optimizer
-    (``step_graph.step_body``): (the ray group, ``_mean_over_rays`` on
+    (``graphs.step_body``): (the ray group, ``_mean_over_rays`` on
     it); None in a world of 1."""
     if mesh.group is None:
         return None
@@ -233,7 +232,7 @@ def _dp_step(avatar: AvatarModel, mesh: Mesh, with_grid_update: bool,
         if (draws.grid_jitter is not None) != with_grid_update:
             raise ValueError("the draws' grid jitter does not match "
                              f"with_grid_update={with_grid_update}")
-        return avatar._captured_steps().run(
+        return avatar._graphs("step_graphs", StepGraphs).run(
             state, local, draws, update=with_grid_update, reduce=reduce)
     losses, grid = avatar.grads_and_losses(state, local, draws,
                                            with_grid_update)
@@ -258,7 +257,7 @@ def make_dp_train_step(avatar: AvatarModel, mesh: Mesh,
 
     On a CUDA model whose ray group is None or NCCL the step is one replay
     of a captured CUDA graph of the whole step, the ``all_reduce``
-    included (JAX's jitted ``shard_map`` program; ``train/step_graph.py``),
+    included (JAX's jitted ``shard_map`` program; ``train/graphs.py``),
     with no host sync inside; the grid is written into ``state.grid``'s
     tensors, as the optimizer writes the parameters, and a failed capture
     raises. A gloo group cannot be captured: its steps run eagerly, as on
@@ -361,12 +360,12 @@ class DPFrameRenderer:
     are all-gathered, with each band's counts, and put back in image
     order.
 
-    The budgets (JAX's ``_budgets``) are the session's learned ones for
-    the band shape, else the priors, the cell budget at most the model's
+    The budgets (JAX's ``_budgets``) are the session's for the band shape
+    (``RenderSession.open``), the cell budget at most the model's
     ``cell_budget``; ``finish_frame`` learns them from the largest band's
-    counts and re-renders every band when one overflowed (JAX's loop: at
-    most 4 passes, then a ``RuntimeWarning``). Every rank takes the same
-    decision, from the same gathered counts.
+    counts and re-renders every band when one overflowed
+    (``RenderSession.settle``). Every rank takes the same decision, from
+    the same gathered counts.
 
     ``layout="stride"`` (the default) deals p-row block-rows round-robin
     over the bands, p the prepass block of a band (3 or 2, else 1): band c
@@ -448,16 +447,12 @@ class DPFrameRenderer:
         frame = self._shape_frame(rbatch, image_shape)
         p = av._block_size(*frame.band_shape)
         skey = (frame.n_loc, (*frame.band_shape, p))
-        nb = frame.n_loc // (p * p)
-        hint = session.samp_budget.get(skey)
-        m = hint if hint is not None else int(nb * av.samples_per_ray)
-        return dict(state=state, frame=frame, grid=grid, session=session,
-                    key=key, refs=refs, skey=skey, graph=av._graphed(graph),
-                    samp_budget=av._round_budget(
-                        min(max(m, 1), nb * av.prepass_steps), CHUNK)[0],
-                    cell_budget=min(session.cell_budget.get(skey)
-                                    or av.cell_budget, av.cell_budget),
-                    bakes=0)
+        rec = dict(state=state, frame=frame, grid=grid, session=session,
+                   key=key, refs=refs, skey=skey, flat=True, n=frame.n_loc,
+                   chunk=CHUNK, cell_cap=av.cell_budget,
+                   graph=av._graphed(graph), bakes=0)
+        session.open(rec, av, frame.n_loc // (p * p))
+        return rec
 
     def _band(self, rec: dict, band: int, rebake: bool = False
               ) -> tuple[dict, torch.Tensor, Any]:
@@ -475,44 +470,27 @@ class DPFrameRenderer:
         av._commit_bake(rec["session"], plan)
         return out, counts, plan
 
-    def _settle(self, rec: dict, n_hit: int, n_occ: int, limit: int
-                ) -> tuple[bool, bool]:
-        """Learn the session's budgets from a render's largest band
-        counts (high-water marks, the cells at most the model's
-        ``cell_budget``); on an overflow, set ``rec``'s budgets to the
-        learned ones, or the counts where those are larger. Returns
-        (samples over, cells over)."""
-        av, session, skey = self.avatar, rec["session"], rec["skey"]
-        _high_water(session.cell_budget, skey, min(
-            av.cell_budget, max(4096, -(-int(n_occ * 1.15) // 4096) * 4096)))
-        _high_water(session.samp_budget, skey, max(8192, int(n_hit * 1.2)))
-        ray_over, cell_over = n_hit > rec["samp_budget"], n_occ > limit
-        if ray_over:   # the learned budgets, as the single-device frame
-            rec["samp_budget"] = av._round_budget(
-                max(n_hit, session.samp_budget[skey]), CHUNK)[0]
-        if cell_over:
-            rec["cell_budget"] = max(-(-n_occ // 4096) * 4096,
-                                     session.cell_budget[skey])
-        return ray_over, cell_over
-
     def render_band(self, state: TrainState, batch, band: int, grid=None,
                     image_shape: tuple[int, int] | None = None,
                     session: RenderSession | None = None,
                     graph: bool | None = None) -> dict:
         """Band ``band``'s program alone, in any process (no collective),
-        re-rendered until no count overflows: the ``render_frame``-style
-        dict of its H / n_ray x W pixels in band order, plus ``baked``
-        (whether it ran the warp-cache bake)."""
+        re-rendered while a count overflows (``RenderSession.settle``; at
+        most 4 renders in all): the ``render_frame``-style dict of its
+        H / n_ray x W pixels in band order, plus ``baked`` (whether it ran
+        the warp-cache bake)."""
         rec = self._start(state, batch, grid, image_shape, session, graph)
-        rebake = baked = False
-        for _ in range(4):
+        rec["baked"] = False
+
+        def render(rec, rebake=False):
             out, counts, plan = self._band(rec, band, rebake)
-            baked |= plan.bake
-            n_hit, n_occ, _ = counts.tolist()
-            ray_over, rebake = self._settle(rec, n_hit, n_occ, plan.limit)
-            if not (ray_over or rebake):
-                break
-        return {**out, "n_samples": n_hit, "n_occ": n_occ, "baked": baked}
+            rec.update(out=out, counts=counts, limit=plan.limit,
+                       baked=rec["baked"] or plan.bake)
+        render(rec)
+        n_hit, n_occ, _ = rec["session"].settle(
+            rec, render, lambda: rec["counts"].tolist(), passes=3)
+        return {**rec["out"], "n_samples": n_hit, "n_occ": n_occ,
+                "baked": rec["baked"]}
 
     # -- launch / wait -----------------------------------------------------
 
@@ -546,10 +524,12 @@ class DPFrameRenderer:
         self._dispatch(rec)
         return rec
 
-    def _counts(self, rec: dict) -> tuple[int, int, int, list]:
+    def _counts(self, rec: dict) -> tuple[int, int, list]:
         """Wait for the gather; the band counts (one host read): the
-        largest kept samples and occupied cells, the smallest table cell
-        budget, and each band's (samples, cells, baked)."""
+        largest kept samples and occupied cells, and each band's
+        (samples, cells, baked). Sets ``rec["limit"]``, the smallest
+        table cell budget, and adds the bands that baked to
+        ``rec["bakes"]``."""
         if rec["work"] is not None:
             rec["work"].wait()
         frame = rec["frame"]
@@ -558,8 +538,9 @@ class DPFrameRenderer:
         bands = [(int(e[0]) * (1 << 20) + int(e[1]),
                   int(e[2]) * (1 << 20) + int(e[3]), int(e[4]))
                  for e in extra]
-        return (max(b[0] for b in bands), max(b[1] for b in bands),
-                int(extra[:, 5].min()), bands)
+        rec["limit"] = int(extra[:, 5].min())
+        rec["bakes"] += sum(b[2] for b in bands)
+        return max(b[0] for b in bands), max(b[1] for b in bands), bands
 
     def finish_frame(self, rec: dict) -> dict:
         """Wait for an in-flight frame's gather, learn the budgets, and
@@ -567,22 +548,8 @@ class DPFrameRenderer:
         image order: rgb (n, 3), depth, alpha, counter (n,) on the device,
         the frame's kept samples, occupied cells, and the bands that ran
         the bake over the frame's renders."""
-        n_hit, n_occ, limit, bands = self._counts(rec)
-        rec["bakes"] += sum(b[2] for b in bands)
-        for _ in range(4):
-            ray_over, cell_over = self._settle(rec, n_hit, n_occ, limit)
-            if not (ray_over or cell_over):
-                break
-            self._dispatch(rec, rebake=cell_over)
-            n_hit, n_occ, limit, bands = self._counts(rec)
-            rec["bakes"] += sum(b[2] for b in bands)
-        else:
-            if n_hit > rec["samp_budget"] or n_occ > limit:
-                warnings.warn(
-                    f"sharded frame still overflowed after 4 re-render "
-                    f"passes (hits {n_hit} vs budget {rec['samp_budget']}, "
-                    f"occupied cells {n_occ} vs {limit}); the returned "
-                    f"image is truncated", RuntimeWarning, stacklevel=3)
+        _, n_occ, bands = rec["session"].settle(
+            rec, self._dispatch, lambda: self._counts(rec))
         frame = rec["frame"]
         rows = rec["buf"].reshape(self.n_ray, frame.n_loc + 1, 6)
         pix = rows[:, :-1].reshape(frame.n, 6)

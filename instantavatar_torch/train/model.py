@@ -71,7 +71,7 @@ back to the host: the training bake takes a static ``cell_budget`` of
 cells (``_train_cache``), and every branch JAX takes on the device is
 fixed per step by the host-known step (``graph_key``). On a CUDA model
 ``step`` and ``train_multi_step`` replay a captured CUDA graph of the
-step (``step_graph.StepGraphs``), as JAX runs its jitted step; on the
+step (``graphs.StepGraphs``), as JAX runs its jitted step; on the
 CPU they run eagerly.
 
 The frame keeps JAX's static shapes too (``_render_frame_async``,
@@ -82,13 +82,13 @@ ray-bundle modes the first ``ray_budget`` hit rays; ``RenderSession``
 learns the sample and cell budgets per (rays, prepass shape) from the
 counts of earlier frames. A frame reads nothing back to the host until
 its one fetch, the (kept samples, occupied cells, evaluated samples)
-triple, which ``_finish_frame`` compares with the budgets: on an
+triple, which ``RenderSession.settle`` compares with the budgets: on an
 overflow it re-renders with larger ones (at most 4 passes, then a
 ``RuntimeWarning``). ``render_frames`` keeps two frames in flight. On a
 CUDA model every budgeted frame, flat or ray-bundle, is one replay of a
-captured CUDA graph (``frame_graph.FrameGraphs``, per program, image
-shape, budgets and bake or reuse), and so are each per-pose grid build
-(``grid_graph.GridGraphs``, per grid kind) and each shard of
+captured CUDA graph (``graphs.FrameGraphs``, per program, image shape,
+budgets and bake or reuse), and so are each per-pose grid build
+(``graphs.GridGraphs``, per grid kind) and each shard of
 ``parallel.make_dp_render`` (``_eval_render``); on the CPU they run
 eagerly.
 ``render_stream`` and ``render_rays_frame`` called without budgets
@@ -123,6 +123,7 @@ from ..render.raymarcher import (Rays, compact_samples, ray_aabb,
                                  render_rays, render_rays_probed,
                                  render_rays_windows, sample_z)
 from ..utils.profiling import count, span
+from .graphs import FrameGraphs, GridGraphs, StepGraphs
 from .optim import GroupedAdam, OptimizerSpec, make_optimizer
 from .smpl_params import SMPLParams, lookup_frame
 
@@ -178,9 +179,12 @@ class RenderSession:
 
     ``samp_budget`` and ``cell_budget`` hold the learned flat-stream
     sample budget and bake cell budget per ``(n_rays, prepass_shape)``
-    (high-water marks of earlier frames' counts, ``_finish_frame``).
-    The memos: the warp cache and sigma table depend only on (field
-    params, betas, body pose, grid), and the frame's own test grid
+    (high-water marks of earlier frames' counts). The session owns the
+    budget policy of every frame renderer: ``open`` sets a frame's first
+    budgets, ``settle`` learns from its counts and re-renders an
+    overflow (JAX's ``_budgets`` and ``_finish_frame``). The memos: the
+    warp cache and sigma table depend only on (field params, betas, body
+    pose, grid), and the frame's own test grid
     (``render_frame(grid=None)``) only on (field params, betas, body
     pose, eval grid kind); global orientation and translation cancel in
     the world->SMPL transform, so a turntable builds one grid and bakes
@@ -201,6 +205,100 @@ class RenderSession:
         # (key, DensityGridState, objects the key identifies)
         self.last_grid: tuple | None = None
         self.frames = 0
+
+    @staticmethod
+    def round_budget(m: int, chunk: int) -> tuple[int, int]:
+        """(budget, chunk) with budget the next chunk multiple of m, the
+        chunk cut to the power of two at or above m (JAX's)."""
+        chunk = min(chunk, 1 << (max(m, 1) - 1).bit_length())
+        n_chunks = max(1, -(-m // chunk))
+        return n_chunks * chunk, chunk
+
+    def open(self, rec: dict, model, blocks: int,
+             ray_budget_frac: float = 0.5) -> None:
+        """A frame's first budgets into its record ``rec`` (keys ``skey``,
+        ``flat``, ``n`` rays, ``chunk`` and ``cell_cap``): the bake's cell
+        budget, the learned one else the model's ``cell_budget``, at most
+        ``cell_cap``; a flat frame's sample budget, the learned one else
+        ``samples_per_ray`` per block of ``blocks``, at most
+        ``prepass_steps`` per block; a ray-bundle frame's ray budget,
+        ``ray_budget_frac`` of its rays, and its chunk."""
+        skey, chunk, n = rec["skey"], rec["chunk"], rec["n"]
+        rec["cell_budget"] = min(self.cell_budget.get(skey)
+                                 or model.cell_budget, rec["cell_cap"])
+        if rec["flat"]:
+            hint = self.samp_budget.get(skey)
+            m = (hint if hint is not None
+                 else int(blocks * model.samples_per_ray))
+            rec["samp_budget"] = self.round_budget(
+                min(max(m, 1), blocks * model.prepass_steps), chunk)[0]
+        else:
+            budget, rec["chunk_eff"] = self.round_budget(
+                max(int(n * ray_budget_frac), 1), chunk)
+            rec["ray_budget"] = min(budget, self.round_budget(n, chunk)[0])
+
+    def settle(self, rec: dict, dispatch, read, passes: int = 4) -> tuple:
+        """Learn the budgets from a frame's counts and re-render it while
+        a count overflows (JAX's ``_finish_frame``). ``read()`` waits for
+        the last render's counts (kept samples, occupied cells, ...),
+        which are learned as high-water marks: 1.15 x the occupied cells
+        in 4096-cell steps, at most ``rec["cell_cap"]``; a flat frame's
+        1.2 x the kept samples, at least 8192. When a count overflowed its
+        budget (the cells: ``rec["limit"]``, the cell budget of the tables
+        the render read), ``dispatch(rec, rebake=)`` renders again at the
+        learned budgets, which hold it (rebaking when the cells
+        overflowed), for at most ``passes`` passes, then warns. Returns
+        the last counts."""
+        skey, got = rec["skey"], read()
+        for _ in range(passes):
+            n_hit, n_occ = got[:2]
+            _high_water(self.cell_budget, skey, min(
+                rec["cell_cap"],
+                max(4096, -(-int(n_occ * 1.15) // 4096) * 4096)))
+            if rec["flat"]:
+                _high_water(self.samp_budget, skey,
+                            max(8192, int(n_hit * 1.2)))
+            ray_over, cell_over = _overflow(rec, n_hit, n_occ)
+            if not (ray_over or cell_over):
+                return got
+            # the budgets just learned hold the counts: the re-render and
+            # the next frames replay one graph (JAX re-renders at the
+            # counts, rounded)
+            if ray_over and rec["flat"]:
+                rec["samp_budget"] = self.round_budget(
+                    max(n_hit, self.samp_budget[skey]), rec["chunk"])[0]
+            elif ray_over:
+                rec["ray_budget"], rec["chunk_eff"] = self.round_budget(
+                    rec["n"], rec["chunk"])
+            if cell_over:
+                rec["cell_budget"] = max(-(-n_occ // 4096) * 4096,
+                                         self.cell_budget[skey])
+            dispatch(rec, rebake=cell_over)
+            got = read()
+        n_hit, n_occ = got[:2]
+        if any(_overflow(rec, n_hit, n_occ)):
+            budget = rec["samp_budget" if rec["flat"] else "ray_budget"]
+            warnings.warn(
+                f"frame still overflowed after {passes} re-render passes "
+                f"(hits {n_hit} vs budget {budget}, occupied cells {n_occ} "
+                f"vs {rec['limit']}); the returned image is truncated "
+                f"(overflowed rays/samples rendered as background)",
+                RuntimeWarning, stacklevel=4)
+        return got
+
+
+def _overflow(rec: dict, n_hit: int, n_occ: int) -> tuple[bool, bool]:
+    """Whether a frame's kept samples (flat) or hit rays overflowed its
+    budget, and whether its occupied cells did."""
+    ray_over = (n_hit > rec["samp_budget"] if rec["flat"]
+                else rec["ray_budget"] < rec["n"]
+                and n_hit > rec["ray_budget"])
+    return ray_over, n_occ > rec["limit"]
+
+
+def _high_water(table: dict, key, want: int) -> None:
+    cur = table.get(key)
+    table[key] = want if cur is None else max(cur, want)
 
 
 class _BakePlan(NamedTuple):
@@ -344,9 +442,9 @@ class AvatarModel:
                              "(losses.lpips.load_lpips)")
         self.optimizer = optimizer or make_optimizer(
             1e-2, betas=(0.9, 0.999), eps=1e-8, skip_nonfinite=0)
-        # the captured training steps (``step_graph.StepGraphs``), frames
-        # (``frame_graph.FrameGraphs``) and per-pose grids
-        # (``grid_graph.GridGraphs``), made at first use
+        # the captured training steps, frames and per-pose grids
+        # (``graphs.StepGraphs``, ``FrameGraphs``, ``GridGraphs``), made at
+        # first use (``_graphs``)
         self.step_graphs = None
         self.frame_graphs = None
         self.grid_graphs = None
@@ -736,12 +834,13 @@ class AvatarModel:
             raise ValueError("a captured step or frame needs a CUDA model")
         return graph
 
-    def _captured_steps(self):
-        """The model's ``step_graph.StepGraphs``, made at first use."""
-        if self.step_graphs is None:
-            from .step_graph import StepGraphs
-            self.step_graphs = StepGraphs(self)
-        return self.step_graphs
+    def _graphs(self, attr: str, cls):
+        """The model's captured graphs ``attr`` (``step_graphs``,
+        ``frame_graphs`` or ``grid_graphs``), a ``cls`` made at first
+        use."""
+        if getattr(self, attr) is None:
+            setattr(self, attr, cls(self))
+        return getattr(self, attr)
 
     def _run_step(self, state: TrainState, batch, draws: StepDraws,
                   graph: bool) -> tuple[TrainState, dict]:
@@ -749,7 +848,8 @@ class AvatarModel:
             raise ValueError(f"step {state.step}: the draws' grid jitter "
                              f"does not match the grid-update cadence")
         if graph:
-            return self._captured_steps().run(state, batch, draws)
+            return self._graphs("step_graphs", StepGraphs).run(
+                state, batch, draws)
         if draws.grid_jitter is not None:
             return self.train_step_update(state, batch, draws)
         return self.train_step(state, batch, draws)
@@ -759,7 +859,7 @@ class AvatarModel:
         """One training step at the reference cadence: a grid update every
         ``grid_update_interval`` steps, draws from ``generator``. On a
         CUDA model the step replays a captured CUDA graph of the step
-        (``step_graph.StepGraphs``; a failed capture raises); on the CPU,
+        (``graphs.StepGraphs``; a failed capture raises); on the CPU,
         or with ``graph=False``, it runs eagerly. The graph writes the
         updated grid into ``state.grid``'s tensors, as the optimizer
         writes the parameters."""
@@ -792,11 +892,12 @@ class AvatarModel:
         """Per-pose grid from the posed body shell: cells within
         max(shell_margin, half a cell diagonal) of a posed vertex, over the
         forward-warped voxel's AABB. On a CUDA model one replay of a
-        captured CUDA graph (``grid_graph.GridGraphs``; a failed capture
+        captured CUDA graph (``graphs.GridGraphs``; a failed capture
         raises), as JAX jits it; on the CPU, or with ``graph=False``,
         eager. The returned tensors are the caller's own."""
         if self._graphed(graph):
-            return self._captured_grids().run("smpl_shell", state, batch)
+            return self._graphs("grid_graphs", GridGraphs).run(
+                "smpl_shell", state, batch)
         return self._pose_grid(state, batch)
 
     def build_test_grid(self, state: TrainState, batch,
@@ -809,8 +910,8 @@ class AvatarModel:
         uses ``PRNGKey(0)``: same role, other numbers). On a CUDA model one
         replay of a captured CUDA graph, as ``build_pose_grid``."""
         if self._graphed(graph):
-            return self._captured_grids().run("density", state, batch,
-                                              jitter)
+            return self._graphs("grid_graphs", GridGraphs).run(
+                "density", state, batch, jitter)
         return self._test_grid(state, batch, jitter)
 
     def _default_jitter(self) -> torch.Tensor:
@@ -840,13 +941,6 @@ class AvatarModel:
         return initialize_grid(self.deformer.bbox_deformed(dstate),
                                self._density_fn(state, dstate, True), jitter,
                                self.grid_size)
-
-    def _captured_grids(self):
-        """The model's ``grid_graph.GridGraphs``, made at first use."""
-        if self.grid_graphs is None:
-            from .grid_graph import GridGraphs
-            self.grid_graphs = GridGraphs(self)
-        return self.grid_graphs
 
     # -- frame render -------------------------------------------------------
 
@@ -1205,10 +1299,8 @@ class AvatarModel:
         the method's arguments and return (outputs, counts)."""
         if not graph:
             return getattr(self, program)
-        if self.frame_graphs is None:
-            from .frame_graph import FrameGraphs
-            self.frame_graphs = FrameGraphs(self)
-        return functools.partial(self.frame_graphs.run, program)
+        return functools.partial(
+            self._graphs("frame_graphs", FrameGraphs).run, program)
 
     @torch.no_grad()
     def _eval_render(self, state: TrainState, batch,
@@ -1415,14 +1507,6 @@ class AvatarModel:
 
     # -- the frame as JAX's one program: budgets, fetch, overflow ----------
 
-    @staticmethod
-    def _round_budget(m: int, chunk: int) -> tuple[int, int]:
-        """(budget, chunk) with budget the next chunk multiple of m, the
-        chunk cut to the power of two at or above m (JAX's)."""
-        chunk = min(chunk, 1 << (max(m, 1) - 1).bit_length())
-        n_chunks = max(1, -(-m // chunk))
-        return n_chunks * chunk, chunk
-
     def _frame_is_flat(self, batch, image_shape) -> bool:
         """Whether the frame renders through the flat path; refuses a
         batch that its mode cannot render."""
@@ -1446,11 +1530,8 @@ class AvatarModel:
                             graph: bool | None = None) -> dict:
         """Enqueue a frame without a host sync (JAX's
         ``_render_frame_async``); returns the in-flight record for
-        ``_finish_frame``. The budgets come from the session's learned
-        ones, else the priors: the flat stream's ``samples_per_ray`` per
-        block (at most ``prepass_steps``), the bake's ``cell_budget`` (the
-        learned one up to G^3), the ray-bundle modes' ``ray_budget_frac``
-        of the rays."""
+        ``_finish_frame``. The budgets are the session's
+        (``RenderSession.open``), the learned cell budget up to G^3."""
         own = session is None
         if own:   # this call's: the priors, no memo across calls
             session = RenderSession()
@@ -1473,7 +1554,6 @@ class AvatarModel:
                 with span("grid.build"):
                     grid = self._frame_grid(state, batch, session, key, refs,
                                             graph)
-            G3 = self.grid_size ** 3
             if flat:
                 H, W = image_shape
                 n = H * W
@@ -1488,22 +1568,9 @@ class AvatarModel:
             rec = dict(state=state, batch=rbatch, grid=grid,
                        image_shape=image_shape, session=session, key=key,
                        refs=refs, skey=skey, n=n, flat=flat, chunk=chunk,
-                       seq=seq,
-                       graph=self._graphed(graph),
-                       cell_budget=min(session.cell_budget.get(skey)
-                                       or self.cell_budget, G3))
-            if flat:
-                nb = n // (p * p)
-                hint = session.samp_budget.get(skey)
-                m = (hint if hint is not None
-                     else int(nb * self.samples_per_ray))
-                rec["samp_budget"] = self._round_budget(
-                    min(max(m, 1), nb * self.prepass_steps), chunk)[0]
-            else:
-                budget, rec["chunk_eff"] = self._round_budget(
-                    max(int(n * ray_budget_frac), 1), chunk)
-                rec["ray_budget"] = min(budget,
-                                        self._round_budget(n, chunk)[0])
+                       seq=seq, graph=self._graphed(graph),
+                       cell_cap=self.grid_size ** 3)
+            session.open(rec, self, n // (p * p), ray_budget_frac)
             self._dispatch_frame(rec)
         if own:
             self._call_tables = session.tables
@@ -1514,8 +1581,11 @@ class AvatarModel:
         CUDA model) or the eager program; then the copy of its counts to
         the host behind an event."""
         # a frame that has outputs already is re-rendered
+        rerender = "out" in rec
+        if rerender:
+            count("frame.rerenders")
         with span("frame.dispatch", rec["seq"],
-                  "rerender" if "out" in rec else "first"):
+                  "rerender" if rerender else "first"):
             session, use_cache = rec["session"], self._use_cache()
             with span("frame.bake_plan"):
                 plan = (self._bake_plan(session, rec["key"], rec["refs"],
@@ -1537,64 +1607,18 @@ class AvatarModel:
                        limit=plan.limit if use_cache else math.inf)
 
     def _finish_frame(self, rec: dict) -> dict:
-        """Fetch an in-flight frame's counts (its one host read) and
-        learn the session's budgets from them (high-water marks: 1.15 x
-        the occupied cells in 4096-cell steps, at most G^3; 1.2 x the
-        kept samples, at least 8192); when a count overflowed its budget,
-        re-render at the learned budgets, which hold it (rebaking when the
-        cells overflowed), for at most 4 passes, then warn (JAX's
-        ``_finish_frame``). Returns rgb (n, 3), depth, alpha, counter
-        (n,) as device tensors, with the kept (evaluated) samples
+        """Fetch an in-flight frame's counts (its one host read), learn
+        the session's budgets from them and re-render on an overflow
+        (``RenderSession.settle``). Returns rgb (n, 3), depth, alpha,
+        counter (n,) as device tensors, with the kept (evaluated) samples
         ``n_samples`` and occupied cells ``n_occ``."""
-        with span("frame.finish", rec["seq"]):
+        def read():
             with span("frame.wait"):
-                n_hit, n_occ, n_samples = rec["counts"]()
-            session, skey = rec["session"], rec["skey"]
-            n, chunk = rec["n"], rec["chunk"]
+                return rec["counts"]()
 
-            def over(n_hit, n_occ):
-                ray_over = (n_hit > rec["samp_budget"] if rec["flat"]
-                            else rec["ray_budget"] < n
-                            and n_hit > rec["ray_budget"])
-                return ray_over, n_occ > rec["limit"]
-
-            for _ in range(4):
-                _high_water(session.cell_budget, skey, min(
-                    self.grid_size ** 3,
-                    max(4096, -(-int(n_occ * 1.15) // 4096) * 4096)))
-                if rec["flat"]:
-                    _high_water(session.samp_budget, skey,
-                                max(8192, int(n_hit * 1.2)))
-                ray_over, cell_over = over(n_hit, n_occ)
-                if not (ray_over or cell_over):
-                    break
-                # the budgets just learned hold the counts: the re-render
-                # and the next frames replay one graph (JAX re-renders at
-                # the counts, rounded)
-                if ray_over and rec["flat"]:
-                    rec["samp_budget"] = self._round_budget(
-                        max(n_hit, session.samp_budget[skey]), chunk)[0]
-                elif ray_over:
-                    rec["ray_budget"], rec["chunk_eff"] = \
-                        self._round_budget(n, chunk)
-                if cell_over:
-                    rec["cell_budget"] = max(-(-n_occ // 4096) * 4096,
-                                             session.cell_budget[skey])
-                count("frame.rerenders")
-                self._dispatch_frame(rec, rebake=cell_over)
-                with span("frame.wait"):
-                    n_hit, n_occ, n_samples = rec["counts"]()
-            else:
-                ray_over, cell_over = over(n_hit, n_occ)
-                if ray_over or cell_over:
-                    budget = rec["samp_budget" if rec["flat"]
-                                 else "ray_budget"]
-                    warnings.warn(
-                        f"frame still overflowed after 4 re-render passes "
-                        f"(hits {n_hit} vs budget {budget}, occupied cells "
-                        f"{n_occ} vs {rec['limit']}); the returned image is "
-                        f"truncated (overflowed rays/samples rendered as "
-                        f"background)", RuntimeWarning, stacklevel=3)
+        with span("frame.finish", rec["seq"]):
+            _, n_occ, n_samples = rec["session"].settle(
+                rec, self._dispatch_frame, read)
             return {**rec["out"], "n_samples": n_samples, "n_occ": n_occ}
 
     def render_frame(self, state: TrainState, batch,
@@ -1618,7 +1642,7 @@ class AvatarModel:
         ``session`` carries the learned budgets and the memos across
         calls (without one, each call starts from the priors). On a CUDA
         model each budgeted frame, flat or ray-bundle, and each re-render
-        replays a captured CUDA graph (``frame_graph.FrameGraphs``; a
+        replays a captured CUDA graph (``graphs.FrameGraphs``; a
         failed capture raises); ``graph=False`` runs it eagerly, and
         ``graph=True`` raises on a CPU model. ``payload`` sizes the JAX
         render's buffer and is accepted for its signature only. Returns
@@ -1654,11 +1678,6 @@ class AvatarModel:
 
 
 FRAME_KEYS = ("rgb", "depth", "alpha", "counter")
-
-
-def _high_water(table: dict, key, want: int) -> None:
-    cur = table.get(key)
-    table[key] = want if cur is None else max(cur, want)
 
 
 def _fetch_counts(counts: torch.Tensor):

@@ -682,7 +682,7 @@ def test_step_graph_counts_the_head_on_replay(cuda):
     (the training bake's sigma sort); a captured step adds its captured
     launches and rows on every replay, and its capture adds only the
     eager warm-up's launch."""
-    from instantavatar_torch.train.step_graph import StepGraphs
+    from instantavatar_torch.train.graphs import StepGraphs
     fused_field_head.launches = fused_field_head.rows = 0
     _graph_run(cuda, False, steps=2)
     eager = (fused_field_head.launches, fused_field_head.rows)

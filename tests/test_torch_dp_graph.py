@@ -29,7 +29,7 @@ from instantavatar_torch.parallel import (Mesh, make_dp_render,
                                           make_multi_subject_step,
                                           shard_batch, stack_subjects)
 from instantavatar_torch.parallel.data_parallel import _ray_reduce
-from instantavatar_torch.train.step_graph import step_body
+from instantavatar_torch.train.graphs import step_body
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 import torch_parallel_workers as workers  # noqa: E402  (no jax)

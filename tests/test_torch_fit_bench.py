@@ -43,7 +43,7 @@ from instantavatar_torch.config.build import build_avatar
 from instantavatar_torch.deformers import SMPLDeformer
 from instantavatar_torch.kernels import COUNTED, add_replay, captured_counts
 from instantavatar_torch.losses import LPIPS
-from instantavatar_torch.train.step_graph import STEP_COUNTED
+from instantavatar_torch.train.graphs import GRAPH_COUNTED
 
 # the xdist workers share the cores: each worker's torch takes its share
 torch.set_num_threads(max(1, (os.cpu_count() or 1) // int(
@@ -243,7 +243,7 @@ def test_reference_lpips_is_the_ports():
 
 def test_lpips_counter_counts_one_call_per_step_replay(fit):
     """Eager: one call and 2 x 2 x 32^2 rows a step. Under a capture
-    (``captured_counts`` of ``STEP_COUNTED``, as the step graphs take it)
+    (``captured_counts`` of ``GRAPH_COUNTED``, as the step graphs take it)
     one step's count is taken off the counter, and each replay
     (``add_replay``) adds it back."""
     assert fit["counted"] == (3, 3 * 2 * 2 * 32 * 32)
@@ -256,12 +256,12 @@ def test_lpips_counter_counts_one_call_per_step_replay(fit):
     batch = {k: torch.as_tensor(v) for k, v in
              train_loop.host_group(ds, [0]).items()}
     before = (LPIPS.launches, LPIPS.rows)
-    with captured_counts(STEP_COUNTED) as counts:
+    with captured_counts(GRAPH_COUNTED) as counts:
         model.train_multi_step(state, batch, draws)
     assert (LPIPS.launches, LPIPS.rows) == before
-    assert counts[STEP_COUNTED.index(LPIPS)] == (1, 2 * 2 * 32 * 32)
+    assert counts[GRAPH_COUNTED.index(LPIPS)] == (1, 2 * 2 * 32 * 32)
     for _ in range(4):
-        add_replay(counts, STEP_COUNTED)
+        add_replay(counts, GRAPH_COUNTED)
     assert (LPIPS.launches - before[0], LPIPS.rows - before[1]) == (
         4, 4 * 2 * 2 * 32 * 32)
 
@@ -270,7 +270,7 @@ def test_step_graphs_count_lpips_beside_the_kernels():
     """The step graphs count the kernels and the LPIPS trunk; the kernels'
     counters (a fresh interpreter importing ``instantavatar_torch.kernels``)
     load no module of the losses."""
-    assert STEP_COUNTED == (*COUNTED, LPIPS)
+    assert GRAPH_COUNTED == (*COUNTED, LPIPS)
     assert LPIPS not in COUNTED
     code = ("import json, sys, instantavatar_torch.kernels\n"
             "print(json.dumps(sorted(k for k in sys.modules "

@@ -3,7 +3,7 @@ sample and cell budgets that ``RenderSession`` learns, the overflow
 re-render, the pipelined ``render_frames``, a frame path that reads
 nothing back to the host before its one fetch in the flat and in every
 ray-bundle mode (the property that lets the card capture it as a CUDA
-graph, ``train/frame_graph.py``), ``graph=True`` refused on a CPU model,
+graph, ``train/graphs.py``), ``graph=True`` refused on a CPU model,
 and ``DPFrameRenderer``'s budgets on spawned gloo ranks.
 
 The scene is tests/test_torch_slice.py's (the opaque seeded
@@ -13,8 +13,8 @@ Tolerances: the budgeted frame against the port's exact-count frame 1e-6
 measured 0), against JAX's ``render_frame`` 40 dB (its ``_mlp`` head and
 f16 payload against the fused-head numerics, as in test_torch_slice);
 the learned budgets within one rounding granule of JAX's (4096 cells;
-one chunk of ``_round_budget`` for samples), since the two packages'
-counts may differ by a sample or a cell.
+one chunk of ``RenderSession.round_budget`` for samples), since the two
+packages' counts may differ by a sample or a cell.
 """
 import os
 import sys
@@ -163,9 +163,74 @@ def test_session_budgets_match_jax(scene):
     for k, want in jsess.cell_budget.items():
         assert abs(sess.cell_budget[k] - want) <= 4096, k
     for k, want in jsess.samp_budget.items():
-        chunk = av._round_budget(max(sess.samp_budget[k], want), 32768)[1]
+        chunk = RenderSession.round_budget(max(sess.samp_budget[k], want),
+                                           32768)[1]
         assert abs(sess.samp_budget[k] - want) <= chunk, k
     assert _max_gap(outs[0], outs[2]) == 0.0
+
+
+def test_session_cell_caps_of_the_two_renderers(scene):
+    """The learned cell budget's cap (ROADMAP fault 1.11): after a cell
+    overflow at a prior of 64 cells, the single-device frame's session
+    learns a cell budget above the model's ``cell_budget``, at most G^3;
+    ``DPFrameRenderer``'s session (2 bands in one process) never records
+    one above ``cell_budget``. Each frame re-renders to its renderer's
+    frame at the default prior, which does not overflow."""
+    grid, b = scene["grids"][0], scene["seq"][0][1]
+    av = _avatar(scene["pnp"], cell_budget=64)
+    state = scene["state"]
+    want = _exact(av, state, b, grid)
+    sess = RenderSession()
+    out = av.render_frame(state, b, grid=grid, image_shape=(H, H),
+                          session=sess)
+    assert out["n_occ"] > av.cell_budget
+    learned = sess.cell_budget[(H * H, (H, H, 3))]
+    assert av.cell_budget < learned <= GRID ** 3
+    assert _max_gap(out, want) <= EXACT_ATOL
+    dsess = RenderSession()
+    dout = DPFrameRenderer(av, make_mesh(n_ray=2)).render_frame(
+        state, b, grid=grid, image_shape=(H, H), session=dsess)
+    assert dout["n_occ"] > av.cell_budget
+    assert dsess.cell_budget and all(
+        v <= av.cell_budget for v in dsess.cell_budget.values())
+    free = DPFrameRenderer(_avatar(scene["pnp"]), make_mesh(
+        n_ray=2)).render_frame(state, b, grid=grid, image_shape=(H, H))
+    assert _max_gap(dout, free) <= EXACT_ATOL
+
+
+@pytest.mark.parametrize("renderer,renders", [
+    ("single", 5), ("dp_frame", 5), ("dp_band", 4)])
+def test_overflow_passes_are_capped(scene, monkeypatch, renderer, renders):
+    """A frame whose counts overflow at every pass: the single-device and
+    DP frames render once and re-render at most 4 times, a DP band
+    renders at most 4 times in all; each then warns that the image is
+    truncated."""
+    from instantavatar_torch.train import model as model_mod
+    grid, b = scene["grids"][0], scene["seq"][0][1]
+    av, state = _avatar(scene["pnp"]), scene["state"]
+    monkeypatch.setattr(model_mod, "_overflow", lambda rec, n_hit, n_occ:
+                        (True, False))
+    calls = []
+
+    def counted(obj, name):
+        fn = getattr(obj, name)
+        monkeypatch.setattr(obj, name, lambda *a, **k: (
+            calls.append(name), fn(*a, **k))[1])
+
+    kw = dict(grid=grid, image_shape=(H, H))
+    with pytest.warns(RuntimeWarning, match=f"after {renders - 1} re-r"):
+        if renderer == "single":
+            counted(av, "_dispatch_frame")
+            av.render_frame(state, b, **kw)
+        else:
+            rend = DPFrameRenderer(av, make_mesh(n_ray=2))
+            if renderer == "dp_frame":
+                counted(rend, "_dispatch")
+                rend.render_frame(state, b, **kw)
+            else:
+                counted(rend, "_band")
+                rend.render_band(state, b, 1, **kw)
+    assert len(calls) == renders
 
 
 @pytest.mark.parametrize("mode", ["flat", "dense"])

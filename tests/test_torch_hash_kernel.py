@@ -16,7 +16,7 @@ runs only on the card; ``tests/test_torch_cuda.py`` holds it there):
 (c) dispatch: a CPU tensor runs ``hash_encode_ref``; the kernel wrapper's
     argument checks raise before anything is built, and pass any F >= 1
     and up to 64 levels with L * T < 2^31; nothing falls back;
-(d) the graph modules' shared counter helper.
+(d) the graph mechanism's counter helper.
 """
 import os
 from types import SimpleNamespace
@@ -35,7 +35,7 @@ from instantavatar_torch.ops.hashgrid import (HashGridConfig, hash_encode,
                                               hash_encode_backward_ref,
                                               hash_encode_ref,
                                               level_resolutions)
-from instantavatar_torch.train import frame_graph, grid_graph, step_graph
+from instantavatar_torch.train import graphs
 
 torch.set_num_threads(max(1, (os.cpu_count() or 1) // int(
     os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
@@ -293,7 +293,7 @@ def test_kernel_wrapper_takes_any_width_and_64_levels(monkeypatch, F, L,
 def test_counter_helper_adds_each_kernels_replays():
     """(d) ``captured_counts`` takes what a capture counted off every
     counted kernel and ``add_replay`` adds it back once per replay; the
-    three graph modules count through it."""
+    graph mechanism (``train/graphs.py``) counts through it."""
     a = SimpleNamespace(launches=5, rows=50)
     b = SimpleNamespace(launches=1, rows=7)
     with counters.captured_counts((a, b)) as counts:
@@ -309,6 +309,5 @@ def test_counter_helper_adds_each_kernels_replays():
                                 kernel_mod.hash_encode_cuda,
                                 counters.nearest_vertex_cuda,
                                 counters.nearest_warp_cuda)
-    for mod in (step_graph, frame_graph, grid_graph):
-        assert mod.add_replay is counters.add_replay
-        assert mod.captured_counts is counters.captured_counts
+    assert graphs.add_replay is counters.add_replay
+    assert graphs.captured_counts is counters.captured_counts
